@@ -1,0 +1,129 @@
+"""Reflectance filtering CLI (port of reflectance_filtering_tpu/cli/
+filter.py).
+
+Same flags (--filename_in --guidance_in --path_out --sigma_color
+--sigma_spatial --filter_type --subsample --grid_ss --grid_sr) plus
+--device, the same parameter semantics (bilateral: d=-1/sigmaColor/
+sigmaSpace), the same output naming ``{base}_{type}_c{sc}s{ss}.png`` and
+the same no-args help with suggested parameter combinations.  Filtering
+happens in uint8 0-255 space, as in the reference.
+
+Ported so far: ``bilateral``.  ``guided`` and ``bilateral_grid`` raise
+NotImplementedError naming their ROADMAP items.
+
+  python -m reflectance_filtering_tpu_torch.cli.filter \\
+      --filter_type=bilateral --sigma_color=20 --sigma_spatial=22 \\
+      --filename_in out/photo-r.png --guidance_in out/photo-r.png \\
+      --path_out out/ [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from ..ops.bilateral import joint_bilateral_filter_u8
+from ..utils import image as iu
+from . import add_device_flag, resolve_device
+
+
+def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
+                 subsample: int = 1, grid_ss=None, grid_sr=None,
+                 device="cpu"):
+    """Apply the joint-bilateral filter on ``device``; the guided filter
+    and the bilateral grid are not ported yet."""
+    if (sigma_color is None or sigma_spatial is None
+            or sigma_color <= 0 or sigma_spatial <= 0):
+        raise ValueError("Parameters are expected to be positive.")
+    if filter_type == "bilateral":
+        return joint_bilateral_filter_u8(joint, image, d=-1,
+                                         sigma_color=sigma_color,
+                                         sigma_space=sigma_spatial,
+                                         device=device)
+    elif filter_type == "bilateral_grid":
+        raise NotImplementedError(
+            "filter_type 'bilateral_grid' is not ported yet (ROADMAP module "
+            "queue item 9)")
+    elif filter_type == "guided":
+        raise NotImplementedError(
+            "filter_type 'guided' (subsample={}) is not ported yet (ROADMAP "
+            "module queue item 6, kernel queue items 12-17)".format(
+                subsample))
+    raise ValueError("filter_type must be 'bilateral', 'guided' or "
+                     "'bilateral_grid'.")
+
+
+def read_filter_write(filter_type, filename_in, guidance_in,
+                      sigma_color, sigma_spatial, path_out,
+                      subsample: int = 1, grid_ss=None, grid_sr=None,
+                      device="cpu"):
+    """Read input + guidance, filter, write with the reference's naming."""
+    basename = os.path.splitext(os.path.basename(filename_in))[0]
+    image = iu.imread(filename_in)
+    joint = iu.imread(guidance_in)
+
+    filtered = apply_filter(filter_type, image, joint,
+                            sigma_color, sigma_spatial,
+                            subsample=subsample, grid_ss=grid_ss,
+                            grid_sr=grid_sr, device=device)
+
+    params = "_{}_c{}s{}".format(filter_type, sigma_color, sigma_spatial)
+    filename = os.path.join(path_out, basename + params + ".png")
+    iu.imwrite(filename, filtered)
+    return filtered
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="""Filter reflectance prediction with a bilateral/guided
+                       filter, to enhance piecewise constant reflectance
+                       prior.""")
+    parser.add_argument("--filename_in",
+                        help="""Filename of the image which should be
+                                filtered.""")
+    parser.add_argument("--guidance_in",
+                        help="""Filename of the guidance image which should be
+                                used for filtering.""")
+    parser.add_argument("--path_out",
+                        help="""Where the resulting decompositions should be
+                                saved.""")
+    parser.add_argument("--sigma_color", type=float,
+                        help="color parameter")
+    parser.add_argument("--sigma_spatial", type=float,
+                        help="spatial parameter")
+    parser.add_argument("--filter_type",
+                        help="""Which filter to choose,
+                                the guided filter (guided) or
+                                the joint bilateral filter (bilateral).
+                                Only bilateral is ported so far.""")
+    parser.add_argument("--subsample", type=int, default=1,
+                        help="""guided only: >1 runs the Fast Guided
+                                Filter (not ported yet).""")
+    parser.add_argument("--grid_ss", type=int, default=None,
+                        help="""bilateral_grid only: spatial cell size in
+                                pixels (not ported yet).""")
+    parser.add_argument("--grid_sr", type=int, default=None,
+                        help="""bilateral_grid only: range cell size in
+                                intensity levels (not ported yet).""")
+    add_device_flag(parser)
+    args = parser.parse_args(argv)
+    effective_argv = argv if argv is not None else sys.argv[1:]
+    if len(effective_argv) > 0:
+        device = resolve_device(parser, args.device)
+        read_filter_write(args.filter_type,
+                          args.filename_in, args.guidance_in,
+                          args.sigma_color, args.sigma_spatial,
+                          args.path_out, subsample=args.subsample,
+                          grid_ss=args.grid_ss, grid_sr=args.grid_sr,
+                          device=device)
+    else:
+        parser.print_help()
+        print("If you do not have any idea what parameters to choose, " +
+              "try one of the following combinations:")
+        print("--filter_type=bilateral --sigma_color=20 --sigma_spatial=22")
+        print("--filter_type=guided --sigma_color=7 --sigma_spatial=52")
+        print("--filter_type=guided --sigma_color=3 --sigma_spatial=45")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with ctypes — the same build-at-first-use pattern as the JAX
+package's native IO loader (data/native_loader.py).  The library lands in
+``build/torch_kernels/<hash>/`` under the repository root (listed in
+.gitignore); the hash covers the sources and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  The compiler's
+register/shared-memory report (``-Xptxas -v``) is kept beside it as
+``build.log``.
+
+Nothing here runs at import time, and nothing here runs on a CPU-only
+machine: only a wrapper that was handed a CUDA tensor calls ``lib()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+# every exported entry point: argtypes (pointers and the stream as
+# c_void_p, so 64-bit addresses are never cut); each returns its
+# cudaError_t as an int
+_SIGNATURES = {
+    # x, weights, out, batch, hw, srgb_input, stream
+    "rf_cnn_fwd": [_P, _P, _P, _L, _L, _I, _P],
+    # x, out, n, h, w, radius, g2, gsc, stream
+    "rf_bilateral_gray_self": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # plane, y1, x1, y2, x2, l1, l2, b, h, w, k, stream
+    "rf_whdr_gather": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = None  # wall time of the last build in this process
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.isfile(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "reflectance_filtering_tpu_torch need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def _build(out_dir: str, so_path: str) -> None:
+    global build_seconds
+    os.makedirs(out_dir, exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    tmp = "{}.{}.tmp".format(so_path, os.getpid())
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (exit {}):\n{}".format(
+            proc.returncode, proc.stderr[-4000:]))
+    os.replace(tmp, so_path)  # atomic: a concurrent loader sees all or none
+
+
+def build_dir() -> str:
+    """Where the library of the current sources (and its build.log) lives."""
+    return os.path.join(BUILD_ROOT, _digest(_sources()))
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first use; argtypes set for every
+    entry point."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out_dir = build_dir()
+            so_path = os.path.join(out_dir, "librf_kernels.so")
+            if not os.path.isfile(so_path):
+                _build(out_dir, so_path)
+            handle = ctypes.CDLL(so_path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.rf_error_string.argtypes = [ctypes.c_int]
+            handle.rf_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device`` with ``args`` followed by
+    that device's current stream, and raise if the launch reported an
+    error."""
+    handle = lib()
+    with torch.cuda.device(device):
+        rc = getattr(handle, name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("{} failed: CUDA error {} ({})".format(
+            name, rc, handle.rf_error_string(rc).decode()))
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 ndim: int) -> None:
+    """Raise unless ``t`` has the dtype, rank and contiguity a kernel
+    takes (the device is checked by each wrapper's dispatch)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError("{} must be a torch.Tensor, got {}".format(
+            name, type(t).__name__))
+    if t.dtype != dtype:
+        raise TypeError("{} must be {}, got {}".format(name, dtype, t.dtype))
+    if t.dim() != ndim:
+        raise ValueError("{} must have {} dimensions, got shape {}".format(
+            name, ndim, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("{} must be contiguous".format(name))
+
+
+def require_cuda(t: torch.Tensor, wrapper: str) -> None:
+    """Raise unless ``t`` lies on a CUDA device (the wrappers' only other
+    accepted device is the CPU, which takes the plain version)."""
+    if t.device.type != "cuda":
+        raise ValueError("{}: tensors must be on the CPU (plain version) or "
+                         "a CUDA device (kernel), got {}".format(
+                             wrapper, t.device))

@@ -1,0 +1,89 @@
+"""K1: the flagship CNN's fused forward (csrc/cnn_fwd.cu), its plain
+PyTorch version and its wrapper.
+
+Port of reflectance_filtering_tpu/ops/cnn_pallas.py
+(``reflectance_cnn_pallas_planar`` and ``reflectance_cnn_pallas``).  The
+TPU kernel's ``pack_weights`` split every weight into bf16 pieces for the
+matrix unit; the Hopper kernel runs plain f32 FMAs, so its "packing" is
+only a flattening of the module's ``[in, out]`` matrices into the order
+the kernel reads (see the layout note in csrc/cnn_fwd.cu).
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from ..models.networks import ReflectanceNet, mlp_forward
+from ..utils.image import srgb_to_rgb_t
+from . import _build
+
+NUM_WEIGHTS = 4513
+
+
+def pack_weights(net: ReflectanceNet) -> torch.Tensor:
+    """The module's parameters as the kernel's flat f32 [4513] vector, on
+    the module's device: per layer ``W [in, out]`` row-major then its
+    bias, then the 160 fuse weights and the fuse bias."""
+    parts: List[torch.Tensor] = []
+    for w, b in zip(net.weights, net.biases):
+        parts += [w.reshape(-1), b]
+    parts += [net.fuse_weight, net.fuse_bias]
+    flat = torch.cat([p.detach().to(torch.float32) for p in parts])
+    assert flat.numel() == NUM_WEIGHTS
+    return flat.contiguous()
+
+
+def _unpack(flat: torch.Tensor) -> Tuple[list, list, torch.Tensor,
+                                         torch.Tensor]:
+    weights, biases = [], []
+    i, ci = 0, 3
+    for _ in range(5):
+        weights.append(flat[i:i + ci * 32].reshape(ci, 32))
+        biases.append(flat[i + ci * 32:i + ci * 32 + 32])
+        i += ci * 32 + 32
+        ci = 32
+    return weights, biases, flat[i:i + 160], flat[i + 160:i + 161]
+
+
+def reflectance_cnn_plain(x: torch.Tensor, weights: torch.Tensor, *,
+                          srgb_input: bool) -> torch.Tensor:
+    """Plain version of K1: planar x [B, 3, HW] f32 -> [B, HW]."""
+    if srgb_input:
+        x = srgb_to_rgb_t(x)
+    return mlp_forward(x.transpose(1, 2), *_unpack(weights))[..., 0]
+
+
+def reflectance_cnn(x: torch.Tensor, weights: torch.Tensor, *,
+                    srgb_input: bool) -> torch.Tensor:
+    """Fused flagship forward: planar x [B, 3, HW] f32 (RGB in [0, 1];
+    sRGB with ``srgb_input=True``, linear otherwise) and the flat weights
+    of :func:`pack_weights` -> reflectance intensity [B, HW] in (0, 1).
+
+    A CPU tensor runs :func:`reflectance_cnn_plain`; a CUDA tensor
+    launches the kernel."""
+    _build.check_tensor(x, "x", torch.float32, 3)
+    _build.check_tensor(weights, "weights", torch.float32, 1)
+    if x.shape[1] != 3 or weights.numel() != NUM_WEIGHTS:
+        raise ValueError("expected x [B, 3, HW] and weights [{}], got {} "
+                         "and {}".format(NUM_WEIGHTS, tuple(x.shape),
+                                         tuple(weights.shape)))
+    if weights.device != x.device:
+        raise ValueError("x and weights must share a device")
+    if x.device.type == "cpu":
+        return reflectance_cnn_plain(x, weights, srgb_input=srgb_input)
+    _build.require_cuda(x, "reflectance_cnn")
+    b, _, hw = x.shape
+    if b > 65535:
+        raise ValueError("batch {} exceeds the kernel's grid limit of "
+                         "65535".format(b))
+    out = torch.empty((b, hw), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _build.launch("rf_cnn_fwd", x.device, x.data_ptr(),
+                      weights.data_ptr(), out.data_ptr(), b, hw,
+                      int(bool(srgb_input)))
+        reflectance_cnn.launches += 1
+    return out
+
+
+reflectance_cnn.launches = 0

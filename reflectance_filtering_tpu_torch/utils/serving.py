@@ -1,0 +1,51 @@
+"""The batched serving pipelines (port of reflectance_filtering_tpu/
+utils/serving.py:36-118, ``_pipeline_fn``).
+
+``pipeline_fn(kind, net, device)`` returns a callable from a uint8 planar
+BGR batch [B, 3, H, W] to [B, H, W] on ``device``:
+
+  * ``"cnn"`` -> the reflectance intensity in (0, 1) (K1);
+  * ``"bf"``  -> BF(CNN,CNN): reflectance, the -r.png byte path
+    ``floor(r*255)``, the self-guided gray bilateral at sigma_c=20,
+    sigma_s=22 with reps=3 (-r.png reads back as three equal channels;
+    K2), then the product's uint8 write path ``clip(rint(q), 0, 255)``,
+    returned as uint8-valued float32.
+
+The JAX package's ``gf`` pipeline (GF(CNN, image) r45 e3) and its
+``jax.export`` artifacts (``torch.export`` here) are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..cli.decompose import decompose_planar
+from ..models.networks import ReflectanceNet
+from ..ops.bilateral_kernel import bilateral_gray_self
+from ..ops.cnn_kernel import pack_weights
+
+
+def pipeline_fn(kind: str, net: ReflectanceNet, device):
+    """Serving callable for ``kind`` in {"cnn", "bf"}; ``net``'s weights
+    are packed onto ``device`` once, here."""
+    if kind == "gf":
+        raise NotImplementedError(
+            "the 'gf' pipeline waits for the guided-filter port (ROADMAP "
+            "module queue item 6)")
+    if kind not in ("cnn", "bf"):
+        raise ValueError("unknown pipeline '{}'".format(kind))
+    weights = pack_weights(net).to(torch.device(device))
+
+    def cnn(img_bgr_u8_planar: torch.Tensor) -> torch.Tensor:
+        return decompose_planar(weights, img_bgr_u8_planar)
+
+    if kind == "cnn":
+        return cnn
+
+    def bf(img_bgr_u8_planar: torch.Tensor) -> torch.Tensor:
+        # the -r.png byte path: floor(r*255) (a sigmoid < 1 never triggers
+        # imwrite's percentile normalize)
+        r_u8 = torch.floor(cnn(img_bgr_u8_planar) * 255.0)
+        q = bilateral_gray_self(r_u8, -1, 20.0, 22.0, reps=3)
+        return torch.clamp(torch.round(q), 0.0, 255.0)
+
+    return bf

@@ -23,3 +23,8 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; the test skips without one")

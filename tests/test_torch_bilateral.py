@@ -1,0 +1,128 @@
+"""Port bilateral filters (ops/bilateral.py, ops/bilateral_kernel.py)
+against the JAX package: the XLA tap scan ``joint_bilateral_filter``, the
+Pallas gray-self kernel in TPU-interpret mode and the uint8 dispatch."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from reflectance_filtering_tpu.ops import bilateral as jbil
+from reflectance_filtering_tpu.ops.bilateral_pallas import (
+    bilateral_gray_self_batched)
+from reflectance_filtering_tpu_torch.ops import bilateral as tbil
+from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
+    bilateral_gray_self, bilateral_gray_self_plain)
+
+
+def _gray(rng, h, w):
+    return (rng.rand(h, w) * 255).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,radius", [(1, 3), (2, 5), (5, 2), (5, 11),
+                                      (7, 33), (40, 33)])
+def test_reflect101_index_matches_numpy_pad(n, radius):
+    x = np.arange(n)
+    exp = np.pad(x, radius, mode="reflect") if n > 1 else np.zeros(
+        n + 2 * radius, np.int64)
+    got = tbil.reflect101_index(n, radius, "cpu").numpy()
+    np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("shape,sigma_space", [((30, 40), 3.0),
+                                               ((30, 40), 22.0),
+                                               ((10, 13), 22.0)])
+def test_float_filter_matches_xla_scan(shape, sigma_space, rng):
+    """3-channel replicated joint == src, as -r.png reads back; (10, 13)
+    is smaller than the radius (33): reflection repeats."""
+    g3 = np.stack([_gray(rng, *shape)] * 3, axis=-1)
+    exp = np.asarray(jbil.joint_bilateral_filter(g3, g3, -1, 20.0,
+                                                 sigma_space))
+    got = tbil.joint_bilateral_filter(g3, g3, -1, 20.0, sigma_space).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=2e-3)
+
+
+def test_float_filter_joint_ne_src_matches_xla_scan(rng):
+    joint = (rng.rand(18, 21, 3) * 255).astype(np.float32)
+    src = _gray(rng, 18, 21)
+    exp = np.asarray(jbil.joint_bilateral_filter(joint, src, -1, 30.0, 4.0))
+    got = tbil.joint_bilateral_filter(joint, src, -1, 30.0, 4.0).numpy()
+    assert got.shape == (18, 21)
+    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape,sigma_space", [((30, 40), 22.0),
+                                               ((10, 13), 22.0),
+                                               ((1, 9), 4.0)])
+def test_gray_self_plain_matches_xla_scan(shape, sigma_space, rng):
+    """K2's plain version (the kernel's weight formula) against the
+    generic scan on the replicated 3-channel image."""
+    g = _gray(rng, *shape)
+    g3 = np.stack([g] * 3, axis=-1)
+    exp = np.asarray(jbil.joint_bilateral_filter(g3, g3, -1, 20.0,
+                                                 sigma_space))[..., 0]
+    got = bilateral_gray_self(torch.from_numpy(g[None]), -1, 20.0,
+                              sigma_space, reps=3)[0].numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("reps", [3, 1])
+def test_gray_self_matches_pallas_interpret(reps, rng):
+    x = np.stack([_gray(rng, 30, 40), _gray(rng, 30, 40)])
+    with pltpu.force_tpu_interpret_mode():
+        exp = np.asarray(bilateral_gray_self_batched(
+            jnp.asarray(x), -1, 20.0, 3.0, reps=reps, auto_pack=False))
+    got = bilateral_gray_self(torch.from_numpy(x), -1, 20.0, 3.0,
+                              reps=reps).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=2e-3)
+
+
+def _u8_gate(got, exp):
+    d = np.abs(got.astype(int) - exp.astype(int))
+    assert got.dtype == np.uint8 and got.shape == exp.shape
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999, (d.max(),
+                                                       (d == 0).mean())
+
+
+@pytest.mark.parametrize("case", ["gray_self_3ch", "gray_self_2d",
+                                  "color_self", "joint_ne_src"])
+def test_u8_dispatch_matches_jax(case, rng):
+    g = np.floor(rng.rand(26, 31) * 256).astype(np.uint8)
+    sigma_space = 22.0
+    if case == "gray_self_3ch":        # the BF(CNN,CNN) -r.png
+        joint = src = np.stack([g] * 3, axis=-1)
+    elif case == "gray_self_2d":
+        joint = src = g
+    elif case == "color_self":
+        joint = src = np.floor(rng.rand(26, 31, 3) * 256).astype(np.uint8)
+        sigma_space = 3.0
+    else:
+        joint = np.floor(rng.rand(26, 31, 3) * 256).astype(np.uint8)
+        src = np.stack([g] * 3, axis=-1)
+        sigma_space = 3.0
+    exp = jbil.joint_bilateral_filter_u8(joint, src, -1, 20.0, sigma_space)
+    got = tbil.joint_bilateral_filter_u8(joint, src, -1, 20.0, sigma_space,
+                                         device="cpu")
+    _u8_gate(got, exp)
+
+
+def test_u8_dispatch_raises_without_kernel_on_cuda(rng):
+    joint = np.floor(rng.rand(8, 9, 3) * 256).astype(np.uint8)
+    with pytest.raises(NotImplementedError, match="items 8 and 10"):
+        tbil.joint_bilateral_filter_u8(joint, joint, -1, 20.0, 3.0,
+                                       device="cuda")
+
+
+def test_kernel_wrapper_checks_and_cpu_dispatch(rng):
+    x = torch.from_numpy(np.stack([_gray(rng, 9, 10)]))
+    before = bilateral_gray_self.launches
+    np.testing.assert_array_equal(
+        bilateral_gray_self(x, -1, 20.0, 2.0).numpy(),
+        bilateral_gray_self_plain(x, -1, 20.0, 2.0).numpy())
+    assert bilateral_gray_self.launches == before
+    with pytest.raises(ValueError):
+        bilateral_gray_self(x[0])
+    with pytest.raises(TypeError):
+        bilateral_gray_self(x.double())
+    with pytest.raises(ValueError):
+        bilateral_gray_self(x.transpose(1, 2))
