@@ -7,20 +7,34 @@ one NVIDIA GPU: the quickest proof that the port builds and serves.
 Phases (any failure exits nonzero before the result line):
   1. device   the card's name and power limit (nvidia-smi), TF32 pinned off;
   2. build    nvcc builds every kernel from reflectance_filtering_tpu_torch/
-              csrc/ (build seconds, the compiler's register report);
+              csrc/, one process per source (build seconds, the compiler's
+              register report);
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (batch 32 x 256x256, K = 1181), gated;
+              the main paths' shapes (batch 32 x 256x256, K = 1181; the box
+              also on one 2160x3840 plane and on the guided CLI's
+              --subsample=4 planes), plus degenerate shapes, gated;
+  3b. parity  the guided filter on cuda against the golden fixtures
+              (tests/fixtures/guided_golden.npz), every r in {3, 45, 52} x
+              eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
   4. serving  3 requests of 32 uint8 BGR 256x256 photos through
-              utils.serving.pipeline_fn("bf") and whdr_batch, with every
-              launch counter reset before and checked after, and the result
-              held against the same pipeline through the plain versions;
+              utils.serving.pipeline_fn("bf") and whdr_batch, then 3 through
+              pipeline_fn("gf") and whdr_batch; every launch counter is reset
+              before each path and checked after it, and each result is held
+              against the same pipeline through the plain versions;
   5. CLIs     the decompose and filter CLIs' functions on a synthetic PNG
-              on cuda (seeded weights: the trained model is not shipped);
+              on cuda (seeded weights: the trained model is not shipped):
+              bilateral c20 s22, guided c3 s45, and guided with
+              --subsample=4 (the box kernel's path, held against the same
+              filter on the CPU);
   6. times    CUDA-event times of each kernel and its plain version, and
-              the served images/s (not gated).
+              both slices' images/s (not gated);
+  7. profile  each slice's device busy time per batch and per-kernel
+              device times (torch.profiler), and its idle share against
+              phase 6's time in the same run (not gated).
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
-phase 4 and its measured error and times; the last line is
+the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI)
+and its measured error and times; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -37,6 +51,9 @@ import torch
 B, H, W, K = 32, 256, 256, 1181       # the main path's shapes
 SIGMA_C, SIGMA_S = 20.0, 22.0
 K2_SUBSET = 4                         # images for the slow plain bilateral
+GF_R, GF_EPS = 45, 3.0                # GF(CNN, image): README c3 s45
+BIG_PLANE = (1, 2160, 3840)           # one 4K plane for the box kernel
+PROFILE_BATCHES = 5
 
 
 def check(ok, msg):
@@ -74,9 +91,41 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def device_profile(fn, batches):
+    """Device time of fn() per call in ms, from torch.profiler over
+    ``batches`` calls after one warm-up: the busy time (the union of every
+    kernel's and copy's interval on the card) and each kernel's total."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, last, per_kernel = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        per_kernel[name] = per_kernel.get(name, 0.0) + end - start
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    return (busy / batches / 1e3,
+            {k: v / batches / 1e3 for k, v in per_kernel.items()})
+
+
 def u8(t):
     """The product's uint8 write path, as uint8-valued float."""
     return torch.clamp(torch.round(t), 0, 255)
+
+
+def box_tol(shape, radius):
+    """K4's gate against its plain version: the plain float32 block sums'
+    partials reach L * w * 255 (L the padded length, at most the block of
+    512); 8 float32 ulps of that, normalized by the window's area."""
+    w = 2 * radius + 1
+    return 8 * 2.0 ** -24 * min(max(shape[1:]) + 2 * radius, 512) * 255 / w
 
 
 def main():
@@ -96,6 +145,12 @@ def main():
     from reflectance_filtering_tpu_torch.ops import _build
     from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
         bilateral_gray_self, bilateral_gray_self_plain)
+    from reflectance_filtering_tpu_torch.ops.box_kernel import (
+        box_filter_planar, box_filter_planar_plain)
+    from reflectance_filtering_tpu_torch.ops.guided import (
+        fast_guided_filter_u8, guided_filter_u8)
+    from reflectance_filtering_tpu_torch.ops.guided_kernel import (
+        guided_filter_fused, guided_filter_fused_plain)
     from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
         pack_weights, reflectance_cnn, reflectance_cnn_plain)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
@@ -131,6 +186,7 @@ def main():
 
     print("== 3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
+    grng = np.random.RandomState(args.seed + 1)   # the gf slice's inputs
     params = seeded_reference_params(args.seed)
     net = ReflectanceNet()
     net.load_state_dict(params_from_numpy(params))
@@ -195,6 +251,85 @@ def main():
         check(torch.equal(l1k, l1p) and torch.equal(l2k, l2p),
               "K3 bitwise equal to indexing")
 
+        # K4: the main paths' stack of planes, one 4K plane, the guided
+        # CLI's --subsample=4 moment planes (13 at 64x64, radius
+        # round(45 / 4) = 11), and a plane narrower than the window
+        # (reflection repeats)
+        def seeded(*shape):
+            return torch.from_numpy(
+                (grng.rand(*shape) * 255).astype(np.float32)).to(dev)
+        box_in = {"32x256x256": (imgs.to(torch.float32)[:, 0].contiguous(),
+                                 GF_R),
+                  "1x2160x3840": (seeded(*BIG_PLANE), GF_R),
+                  "13x64x64": (seeded(13, H // 4, W // 4), 11),
+                  "1x20x27": (seeded(1, 20, 27), GF_R)}
+        worst = 0.0
+        for name, (planes, radius) in box_in.items():
+            for border in ("reflect", "reflect101"):
+                bk = box_filter_planar(planes, radius, border)
+                bp = box_filter_planar_plain(planes, radius, border)
+                torch.cuda.synchronize()
+                err = (bk - bp).abs().max().item()
+                tol = box_tol(planes.shape, radius)
+                if name == "32x256x256":
+                    worst = max(worst, err)
+                print("K4 {} r={} {}: max|d|={:.3e} (gate {:.3e})".format(
+                    name, radius, border, err, tol))
+                check(err <= tol, "K4 {} {} within 8 float32 ulps of the "
+                      "plain block partials".format(name, border))
+        errs["box_filter"] = worst
+
+        # K5: the gf path's shapes, C=1 (the served reflectance) and C=3,
+        # and strips narrower than the window
+        guide = imgs.flip(1).to(torch.float32).contiguous()
+        gf_in = {"C=1": (guide, r_u8[:, None].contiguous()),
+                 "C=3": (guide, torch.from_numpy(photos(
+                     grng, B, H, W)).to(dev).to(torch.float32))}
+        for shape in ((40, 512), (12, 40)):
+            gf_in["{}x{}".format(*shape)] = tuple(
+                torch.from_numpy(np.floor(grng.rand(1, c, *shape) * 256)
+                                 .astype(np.float32)).to(dev) for c in (3, 1))
+        worst = 0.0
+        for name, (g_in, s_in) in gf_in.items():
+            qk = guided_filter_fused(g_in, s_in, GF_R, GF_EPS)
+            qp = guided_filter_fused_plain(g_in, s_in, GF_R, GF_EPS)
+            torch.cuda.synchronize()
+            err = (qk - qp).abs().max().item()
+            if name in ("C=1", "C=3"):
+                worst = max(worst, err)
+            dl = (u8(qk) - u8(qp)).abs()
+            eq = (dl == 0).float().mean().item()
+            print("K5 {} r={} eps={}: max|d|={:.3e}  uint8 max {:.0f} level, "
+                  "{:.4%} equal".format(name, GF_R, GF_EPS, err,
+                                        dl.max().item(), eq))
+            check(err <= 0.05, "K5 {}: max|d| <= 0.05".format(name))
+            check(dl.max().item() <= 1 and eq >= 0.999,
+                  "K5 {}: <= 1 uint8 level, >= 99.9% equal".format(name))
+        errs["guided_filter"] = worst
+
+    print("== 3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "guided_golden.npz")
+    with np.load(fixture) as z:
+        golden = {k: z[k] for k in z.files}
+    for radius in (3, 45, 52):
+        key = "small" if radius == 3 else "big"
+        for eps in (3.0, 7.0):
+            tag = "r{}_e{}".format(radius, int(eps))
+            worst = {}
+            for kind in ("color", "colorsrc", "gray"):
+                g_u8 = golden["img_{}_guide_{}".format(
+                    key, "gray" if kind == "gray" else "color")]
+                s_u8 = (g_u8 if kind == "colorsrc"
+                        else golden["img_{}_src".format(key)])
+                got = guided_filter_u8(g_u8, s_u8, radius, eps, device=dev)
+                exp = golden["out_{}_{}".format(tag, kind)]
+                worst[kind] = int(np.abs(got.astype(np.int32)
+                                         - exp.astype(np.int32)).max())
+            check(max(worst.values()) <= 1,
+                  "guided {} within 1 uint8 level of the fixtures {}".format(
+                      tag, worst))
+
     print("== 4. serving: 3 requests through pipeline_fn('bf') + whdr_batch")
     requests = [torch.from_numpy(photos(rng, B, H, W)).to(dev)
                 for _ in range(3)]
@@ -204,19 +339,31 @@ def main():
     bf = pipeline_fn("bf", net, dev)
     wrappers = {"cnn_fwd": reflectance_cnn,
                 "bilateral_gray_self": bilateral_gray_self,
-                "whdr_gather": gather_pairs}
-    with torch.no_grad():
+                "whdr_gather": gather_pairs,
+                "box_filter": box_filter_planar,
+                "guided_filter": guided_filter_fused}
+
+    def reset_launches():
         for fn in wrappers.values():
             fn.launches = 0
+
+    def read_launches(run, names):
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        print("launches in the {} run: {}".format(run, counts))
+        for name in names:
+            check(counts[name] > 0, "{} launched by the {} run".format(
+                name, run))
+        return counts
+
+    with torch.no_grad():
+        reset_launches()
         served = []
         for img, cmp in zip(requests, comps):
             q = bf(img)
             served.append((q, whdr_batch(q / 255.0, cmp)))
-        torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        print("launches in the serving run:", launches)
-        for name, n in launches.items():
-            check(n > 0, "{} launched by the main path".format(name))
+        launches = read_launches("bf serving", (
+            "cnn_fwd", "bilateral_gray_self", "whdr_gather"))
         for (q, score), img, cmp in zip(served, requests, comps):
             check(q.shape == (B, H, W) and bool(torch.isfinite(q).all())
                   and q.min().item() >= 0 and q.max().item() <= 255,
@@ -228,6 +375,40 @@ def main():
             qp = u8(bilateral_gray_self_plain(
                 torch.floor(rp * 255.0).reshape(B, H, W), -1, SIGMA_C,
                 SIGMA_S))
+            score_p = whdr_batch(qp.cpu() / 255.0, cmp.cpu())
+            dl = (q - qp).abs()
+            dw = abs(score.item() - score_p.item())
+            print("WHDR {:.6f} (plain {:.6f}, |d|={:.2e}); uint8 max {:.0f} "
+                  "level, {:.4%} equal".format(
+                      score.item(), score_p.item(), dw, dl.max().item(),
+                      (dl == 0).float().mean().item()))
+            check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
+            check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
+
+    print("== 4. serving: 3 requests through pipeline_fn('gf') + whdr_batch")
+    gf_requests = [torch.from_numpy(photos(grng, B, H, W)).to(dev)
+                   for _ in range(3)]
+    gf = pipeline_fn("gf", net, dev)
+    with torch.no_grad():
+        reset_launches()
+        gf_served = []
+        for img, cmp in zip(gf_requests, comps):
+            q = gf(img)
+            gf_served.append((q, whdr_batch(q / 255.0, cmp)))
+        gf_launches = read_launches("gf serving", (
+            "cnn_fwd", "guided_filter", "whdr_gather"))
+        for (q, score), img, cmp in zip(gf_served, gf_requests, comps):
+            check(q.shape == (B, H, W) and bool(torch.isfinite(q).all())
+                  and q.min().item() >= 0 and q.max().item() <= 255,
+                  "output [{}, {}, {}], finite, in [0, 255]".format(B, H, W))
+            check(torch.unique(q).numel() > 20, "the filter had real work")
+            # the same pipeline through the plain versions, on the card
+            guide = img.flip(1).to(torch.float32)
+            xr = (guide / 255.0).reshape(B, 3, H * W)
+            rp = reflectance_cnn_plain(xr, weights, srgb_input=True)
+            qp = u8(guided_filter_fused_plain(
+                guide, torch.floor(rp * 255.0).reshape(B, 1, H, W), GF_R,
+                GF_EPS)[:, 0])
             score_p = whdr_batch(qp.cpu() / 255.0, cmp.cpu())
             dl = (q - qp).abs()
             dw = abs(score.item() - score_p.item())
@@ -263,6 +444,39 @@ def main():
         check(d <= 1, "CLI output within 1 level of pipeline_fn('bf') "
               "(max {})".format(d))
 
+        # guided c3 s45: the -r.png filtered with the photo as its guide,
+        # exact (K5) and with --subsample=4 (the Fast Guided Filter: K4)
+        guided_args = ["--filter_type=guided", "--sigma_color=3",
+                       "--sigma_spatial=45", "--filename_in", r_png,
+                       "--guidance_in", png, "--path_out", tmp,
+                       "--device", "cuda"]
+        reset_launches()
+        filt_cli.main(guided_args)
+        filt_cli.main(guided_args + ["--subsample=4"])
+        cli_launches = read_launches("guided CLI", ("box_filter",
+                                                    "guided_filter"))
+        gf_names = ["smoke-r_guided_c3.0s45.0.png",
+                    "smoke-r_guided_sub4_c3.0s45.0.png"]
+        for name in gf_names:
+            check(os.path.isfile(os.path.join(tmp, name)), "wrote " + name)
+        got = cv2.imread(os.path.join(tmp, gf_names[0]))[..., 0].astype(int)
+        with torch.no_grad():
+            want = gf(torch.from_numpy(
+                np.ascontiguousarray(np.moveaxis(photo, -1, 0))[None]))
+        d = np.abs(got - want[0].cpu().numpy().astype(int)).max()
+        check(d <= 1, "guided CLI output within 1 level of "
+              "pipeline_fn('gf') (max {})".format(d))
+        fast = cv2.imread(os.path.join(tmp, gf_names[1]))[..., 0].astype(int)
+        print("--subsample=4 against the exact file: mean {:.3f}, max {} "
+              "uint8 levels (an approximation; not gated)".format(
+                  np.abs(fast - got).mean(), np.abs(fast - got).max()))
+        # the same Fast Guided Filter on the CPU: the plain box and resizes
+        want = fast_guided_filter_u8(cv2.imread(png), cv2.imread(r_png),
+                                     GF_R, GF_EPS, 4, device="cpu")
+        d = np.abs(fast - want[..., 0].astype(int)).max()
+        check(d <= 1, "guided CLI --subsample=4 within 1 level of "
+              "fast_guided_filter_u8 on the CPU (max {})".format(d))
+
     print("== 6. times (CUDA events; inputs resident on the card)")
     times = {}
     with torch.no_grad():
@@ -281,12 +495,59 @@ def main():
             time_ms(lambda: gather_pairs_plain(plane, *idx), 100))
         slice_ms = time_ms(
             lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]), 10)
+        planes = box_in["32x256x256"][0]
+        times["box_filter"] = (
+            time_ms(lambda: box_filter_planar(planes, GF_R), 20),
+            time_ms(lambda: box_filter_planar_plain(planes, GF_R), 5))
+        big = box_in["1x2160x3840"][0]
+        big_times = (time_ms(lambda: box_filter_planar(big, GF_R), 20),
+                     time_ms(lambda: box_filter_planar_plain(big, GF_R), 5))
+        times["guided_filter"] = (
+            time_ms(lambda: guided_filter_fused(*gf_in["C=1"], GF_R,
+                                                GF_EPS), 20),
+            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=1"], GF_R,
+                                                      GF_EPS), 5))
+        c3_times = (
+            time_ms(lambda: guided_filter_fused(*gf_in["C=3"], GF_R,
+                                                GF_EPS), 10),
+            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=3"], GF_R,
+                                                      GF_EPS), 3))
+        gf_ms = time_ms(
+            lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]), 10)
     for name, (ms, plain_ms) in times.items():
         print("{}: kernel {:.4f} ms, plain {:.4f} ms at the main path's "
               "shapes".format(name, ms, plain_ms))
+    print("box_filter 1x2160x3840 r={}: kernel {:.4f} ms, plain {:.4f} "
+          "ms".format(GF_R, *big_times))
+    print("guided_filter C=3 32x256x256 r={}: kernel {:.4f} ms, plain "
+          "{:.4f} ms".format(GF_R, *c3_times))
     print("bf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
           "({:.2f} MP/s)".format(slice_ms, B, B / slice_ms * 1e3,
                                  B * H * W / slice_ms / 1e3))
+    print("gf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
+          "({:.2f} MP/s)".format(gf_ms, B, B / gf_ms * 1e3,
+                                 B * H * W / gf_ms / 1e3))
+
+    print("== 7. profile: device time per batch (torch.profiler, {} "
+          "batches each)".format(PROFILE_BATCHES))
+    slices = {
+        "bf": (lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]),
+               slice_ms),
+        "gf": (lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]),
+               gf_ms)}
+    with torch.no_grad():
+        for name, (run, wall_ms) in slices.items():
+            busy, per_kernel = device_profile(run, PROFILE_BATCHES)
+            if not per_kernel:
+                print("{} slice: the profiler saw no device time".format(
+                    name))
+                continue
+            print("{} slice: device busy {:.4f} ms of {:.4f} ms per "
+                  "batch (phase 6's CUDA events): idle share {:.2%}"
+                  .format(name, busy, wall_ms, 1 - busy / wall_ms))
+            for kernel, ms in sorted(per_kernel.items(),
+                                     key=lambda kv: -kv[1])[:12]:
+                print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
 
     sources = {
         "cnn_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_fwd.cu",
@@ -297,7 +558,14 @@ def main():
         "whdr_gather": ("reflectance_filtering_tpu_torch/csrc/whdr_gather.cu",
                         "reflectance_filtering_tpu/ops/"
                         "whdr_gather_pallas.py:53"),
+        "box_filter": ("reflectance_filtering_tpu_torch/csrc/box_filter.cu",
+                       "reflectance_filtering_tpu/ops/box_pallas.py:86"),
+        "guided_filter": ("reflectance_filtering_tpu_torch/csrc/guided.cu",
+                          "reflectance_filtering_tpu/ops/guided_mxu.py:82"),
     }
+    # each kernel's launches in the run of its own path
+    launches["box_filter"] = cli_launches["box_filter"]
+    launches["guided_filter"] = gf_launches["guided_filter"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -4,12 +4,15 @@ filter.py).
 Same flags (--filename_in --guidance_in --path_out --sigma_color
 --sigma_spatial --filter_type --subsample --grid_ss --grid_sr) plus
 --device, the same parameter semantics (bilateral: d=-1/sigmaColor/
-sigmaSpace), the same output naming ``{base}_{type}_c{sc}s{ss}.png`` and
-the same no-args help with suggested parameter combinations.  Filtering
-happens in uint8 0-255 space, as in the reference.
+sigmaSpace; guided: radius=int(sigma_spatial), eps=sigma_color), the same
+output naming ``{base}_{type}_c{sc}s{ss}.png`` (``_guided_sub{n}_...`` for
+the ``--subsample`` fast mode) and the same no-args help with suggested
+parameter combinations.  Filtering happens in uint8 0-255 space, as in the
+reference.
 
-Ported so far: ``bilateral``.  ``guided`` and ``bilateral_grid`` raise
-NotImplementedError naming their ROADMAP items.
+Ported so far: ``bilateral`` and ``guided`` (exact, and ``--subsample N``,
+the Fast Guided Filter).  ``bilateral_grid`` raises NotImplementedError
+naming its ROADMAP item.
 
   python -m reflectance_filtering_tpu_torch.cli.filter \\
       --filter_type=bilateral --sigma_color=20 --sigma_spatial=22 \\
@@ -23,15 +26,22 @@ import os
 import sys
 
 from ..ops.bilateral import joint_bilateral_filter_u8
+from ..ops.guided import fast_guided_filter_u8, guided_filter_u8
 from ..utils import image as iu
 from . import add_device_flag, resolve_device
+
+_SUBSAMPLE_CAVEAT = (
+    "--subsample>1 runs the Fast Guided Filter (He & Sun 2015) — an "
+    "APPROXIMATE speed mode, typically <1 uint8 level mean error at "
+    "subsample=4; drop --subsample for the reference-parity output.")
 
 
 def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
                  subsample: int = 1, grid_ss=None, grid_sr=None,
                  device="cpu"):
-    """Apply the joint-bilateral filter on ``device``; the guided filter
-    and the bilateral grid are not ported yet."""
+    """Apply the joint-bilateral or guided filter on ``device``;
+    subsample > 1 with filter_type='guided' runs the Fast Guided Filter.
+    The bilateral grid is not ported yet."""
     if (sigma_color is None or sigma_spatial is None
             or sigma_color <= 0 or sigma_spatial <= 0):
         raise ValueError("Parameters are expected to be positive.")
@@ -45,10 +55,14 @@ def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
             "filter_type 'bilateral_grid' is not ported yet (ROADMAP module "
             "queue item 9)")
     elif filter_type == "guided":
-        raise NotImplementedError(
-            "filter_type 'guided' (subsample={}) is not ported yet (ROADMAP "
-            "module queue item 6, kernel queue items 12-17)".format(
-                subsample))
+        if subsample and subsample > 1:
+            print(_SUBSAMPLE_CAVEAT, file=sys.stderr)
+            return fast_guided_filter_u8(joint, image,
+                                         radius=int(sigma_spatial),
+                                         eps=sigma_color,
+                                         subsample=subsample, device=device)
+        return guided_filter_u8(joint, image, radius=int(sigma_spatial),
+                                eps=sigma_color, device=device)
     raise ValueError("filter_type must be 'bilateral', 'guided' or "
                      "'bilateral_grid'.")
 
@@ -57,7 +71,8 @@ def read_filter_write(filter_type, filename_in, guidance_in,
                       sigma_color, sigma_spatial, path_out,
                       subsample: int = 1, grid_ss=None, grid_sr=None,
                       device="cpu"):
-    """Read input + guidance, filter, write with the reference's naming."""
+    """Read input + guidance, filter, write with the reference's naming
+    (the --subsample fast mode gets its own, ``_guided_sub{n}_...``)."""
     basename = os.path.splitext(os.path.basename(filename_in))[0]
     image = iu.imread(filename_in)
     joint = iu.imread(guidance_in)
@@ -67,7 +82,10 @@ def read_filter_write(filter_type, filename_in, guidance_in,
                             subsample=subsample, grid_ss=grid_ss,
                             grid_sr=grid_sr, device=device)
 
-    params = "_{}_c{}s{}".format(filter_type, sigma_color, sigma_spatial)
+    name_type = filter_type
+    if filter_type == "guided" and subsample and subsample > 1:
+        name_type = "guided_sub{}".format(subsample)
+    params = "_{}_c{}s{}".format(name_type, sigma_color, sigma_spatial)
     filename = os.path.join(path_out, basename + params + ".png")
     iu.imwrite(filename, filtered)
     return filtered
@@ -95,10 +113,12 @@ def main(argv=None):
                         help="""Which filter to choose,
                                 the guided filter (guided) or
                                 the joint bilateral filter (bilateral).
-                                Only bilateral is ported so far.""")
+                                bilateral_grid is not ported yet.""")
     parser.add_argument("--subsample", type=int, default=1,
                         help="""guided only: >1 runs the Fast Guided
-                                Filter (not ported yet).""")
+                                Filter (He & Sun 2015) with coefficients
+                                computed at 1/subsample resolution —
+                                opt-in approximate fast mode.""")
     parser.add_argument("--grid_ss", type=int, default=None,
                         help="""bilateral_grid only: spatial cell size in
                                 pixels (not ported yet).""")

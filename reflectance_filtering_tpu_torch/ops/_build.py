@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes — the same build-at-first-use pattern as the JAX
+(``sm_90a``), one compiler process per source, all started together (one
+nvcc given several sources compiles them one after another), and links
+the objects into one shared library with a plain C interface, which
+is loaded with ctypes — the same build-at-first-use pattern as the JAX
 package's native IO loader (data/native_loader.py).  The library lands in
 ``build/torch_kernels/<hash>/`` under the repository root (listed in
 .gitignore); the hash covers the sources and the flags, so an edited
@@ -29,8 +31,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +49,10 @@ _SIGNATURES = {
     "rf_bilateral_gray_self": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
     # plane, y1, x1, y2, x2, l1, l2, b, h, w, k, stream
     "rf_whdr_gather": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, tmp, b, h, w, radius, reflect101, normalize, stream
+    "rf_box_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # guide, src, out, mom, ab, n, c, h, w, radius, eps, stream
+    "rf_guided_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None
@@ -84,17 +91,34 @@ def _nvcc() -> str:
 def _build(out_dir: str, so_path: str) -> None:
     global build_seconds
     os.makedirs(out_dir, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    tmp = "{}.{}.tmp".format(so_path, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
+    tag = "{}.tmp".format(os.getpid())
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", os.path.join(
+        out_dir, "{}.{}.o".format(os.path.basename(src), tag))]
+        for src in _sources() if src.endswith(".cu")]
+    tmp = "{}.{}".format(so_path, tag)
+    link = [nvcc, *_ARCH, "-shared", "-o", tmp] + [c[-1] for c in cmds]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
     build_seconds = time.perf_counter() - t0
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit {}):\n{}".format(
-            proc.returncode, proc.stderr[-4000:]))
+        for cmd, out, _ in logs:
+            f.write(" ".join(cmd) + "\n" + out)
+    for cmd, _, _ in logs[:len(cmds)]:
+        if os.path.exists(cmd[-1]):
+            os.remove(cmd[-1])
+    failed = [(cmd, out, rc) for cmd, out, rc in logs if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError("nvcc failed (exit {}) on {}:\n{}".format(
+            rc, os.path.basename(cmd[-1]), out[-4000:]))
     os.replace(tmp, so_path)  # atomic: a concurrent loader sees all or none
 
 

@@ -1,0 +1,145 @@
+"""K5: the color-guide guided filter (csrc/guided.cu), its plain PyTorch
+version and its wrapper.
+
+Port of reflectance_filtering_tpu/ops/guided_mxu.py::guided_filter_mxu
+(any src channel count) and ops/guided_pallas.py::guided_filter_fused (one
+src channel), which compute the same function: guide [N, 3, H, W] and src
+[N, C, H, W] float32 in guide-value units (0-255 for the product) ->
+[N, C, H, W], with BORDER_REFLECT box means and eps in (0-255)^2 units.
+
+The plain version is the JAX package's generic planar path
+(``ops/guided.py::_guided_filter_color_planar``) over the plain box
+(ops/boxfilter.py): one box pass over the 9 + 4C moment planes, the 3x3
+cofactor solve, one box pass over (a0, a1, a2, b).  The kernel forms the
+same moments and solve but sums its windows in float64, so the two agree
+to the plain box's float32 rounding, not bitwise.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from . import _build
+from .box_kernel import box_filter_planar_plain
+
+_GRID_LIMIT = 65535
+_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+Box = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def guided_ab_means(I: torch.Tensor, p: torch.Tensor, radius: int, eps,
+                    box: Box) -> torch.Tensor:
+    """The box means of the guided filter's coefficients: I [N, 3, H, W],
+    p [N, C, H, W] -> [N, 4C, H, W] = [mean(a0) | mean(a1) | mean(a2) |
+    mean(b)], each C planes; ``box(x [B, H, W], radius)`` is the box mean
+    (the JAX package's ``_guided_filter_color_planar``, :118-175)."""
+    n, _, h, w = I.shape
+    c = p.shape[1]
+
+    def boxp(x):  # [N, K, H, W] -> the box mean of each plane
+        k = x.shape[1]
+        return box(x.reshape(n * k, h, w).contiguous(), radius).reshape(
+            n, k, h, w)
+
+    # one box pass over all first/second-moment planes:
+    # [I (3) | p (C) | I*p (3C) | unique I x I (6)]
+    Ip = (I[:, :, None] * p[:, None]).reshape(n, 3 * c, h, w)
+    II = torch.stack([I[:, a] * I[:, b] for a, b in _PAIRS], dim=1)
+    moments = boxp(torch.cat([I, p, Ip, II], dim=1))
+    mean_I = moments[:, 0:3]
+    mean_p = moments[:, 3:3 + c]
+    cov_Ip = moments[:, 3 + c:3 + 4 * c].reshape(n, 3, c, h, w)
+    cov_Ip = cov_Ip - mean_I[:, :, None] * mean_p[:, None]
+    m = moments[:, 3 + 4 * c:]
+
+    rr = m[:, 0] - mean_I[:, 0] * mean_I[:, 0] + eps
+    rg = m[:, 1] - mean_I[:, 0] * mean_I[:, 1]
+    rb = m[:, 2] - mean_I[:, 0] * mean_I[:, 2]
+    gg = m[:, 3] - mean_I[:, 1] * mean_I[:, 1] + eps
+    gb = m[:, 4] - mean_I[:, 1] * mean_I[:, 2]
+    bb = m[:, 5] - mean_I[:, 2] * mean_I[:, 2] + eps
+
+    c00 = gg * bb - gb * gb
+    c01 = gb * rb - rg * bb
+    c02 = rg * gb - gg * rb
+    c11 = rr * bb - rb * rb
+    c12 = rb * rg - rr * gb
+    c22 = rr * gg - rg * rg
+    inv_det = 1.0 / (rr * c00 + rg * c01 + rb * c02)
+
+    cov0, cov1, cov2 = cov_Ip[:, 0], cov_Ip[:, 1], cov_Ip[:, 2]  # [N,C,H,W]
+    a0 = (c00[:, None] * cov0 + c01[:, None] * cov1 +
+          c02[:, None] * cov2) * inv_det[:, None]
+    a1 = (c01[:, None] * cov0 + c11[:, None] * cov1 +
+          c12[:, None] * cov2) * inv_det[:, None]
+    a2 = (c02[:, None] * cov0 + c12[:, None] * cov1 +
+          c22[:, None] * cov2) * inv_det[:, None]
+    b = mean_p - (a0 * mean_I[:, 0:1] + a1 * mean_I[:, 1:2] +
+                  a2 * mean_I[:, 2:3])
+    return boxp(torch.cat([a0, a1, a2, b], dim=1))
+
+
+def guided_apply(means: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
+    """q = mean(a) . I + mean(b) from :func:`guided_ab_means`' planes."""
+    c = means.shape[1] // 4
+    return (means[:, :c] * I[:, 0:1] + means[:, c:2 * c] * I[:, 1:2] +
+            means[:, 2 * c:3 * c] * I[:, 2:3] + means[:, 3 * c:])
+
+
+def guided_filter_fused_plain(guide: torch.Tensor, src: torch.Tensor,
+                              radius: int, eps: float) -> torch.Tensor:
+    """Plain version of K5: the generic planar path over the plain box."""
+    return guided_apply(guided_ab_means(guide, src, radius, float(eps),
+                                        box_filter_planar_plain), guide)
+
+
+def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                        eps: float) -> torch.Tensor:
+    """Guided filter with a color guide: guide [N, 3, H, W], src
+    [N, C, H, W] float32 -> [N, C, H, W].
+
+    A CPU tensor runs :func:`guided_filter_fused_plain`; a CUDA tensor
+    launches the kernel (src channels in groups of at most three, each
+    group one kernel call that recomputes the guide's statistics)."""
+    _build.check_tensor(guide, "guide", torch.float32, 4)
+    _build.check_tensor(src, "src", torch.float32, 4)
+    n, k, h, w = guide.shape
+    c = src.shape[1]
+    if k != 3 or src.shape[0] != n or src.shape[2:] != guide.shape[2:]:
+        raise ValueError("guide must be [N, 3, H, W] and src [N, C, H, W] "
+                         "with the same N, H, W; got {} and {}".format(
+                             tuple(guide.shape), tuple(src.shape)))
+    if src.device != guide.device:
+        raise ValueError("guide and src must share a device")
+    if radius < 0:
+        raise ValueError("radius must be >= 0, got {}".format(radius))
+    if guide.device.type == "cpu":
+        return guided_filter_fused_plain(guide, src, radius, eps)
+    _build.require_cuda(guide, "guided_filter_fused")
+    group = min(c, 3)
+    if n > _GRID_LIMIT or h > _GRID_LIMIT or n * 4 * group > _GRID_LIMIT:
+        raise ValueError("guided_filter_fused: {} images of {} rows with {} "
+                         "src channels exceed the kernel's grid limit of "
+                         "{}".format(n, h, c, _GRID_LIMIT))
+    out = torch.empty_like(src)
+    if not out.numel():
+        return out
+    mom = torch.empty((n, 9 + 4 * group, h, w), dtype=torch.float32,
+                      device=src.device)
+    ab = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
+                     device=src.device)
+    for g in range(0, c, 3):
+        s = src[:, g:g + 3].contiguous()
+        o = out[:, g:g + 3] if c <= 3 else torch.empty_like(s)
+        _build.launch("rf_guided_filter", src.device, guide.data_ptr(),
+                      s.data_ptr(), o.data_ptr(), mom.data_ptr(),
+                      ab.data_ptr(), n, s.shape[1], h, w, radius, float(eps))
+        guided_filter_fused.launches += 1
+        if c > 3:
+            out[:, g:g + 3] = o
+    return out
+
+
+guided_filter_fused.launches = 0

@@ -9,10 +9,14 @@ BGR batch [B, 3, H, W] to [B, H, W] on ``device``:
     ``floor(r*255)``, the self-guided gray bilateral at sigma_c=20,
     sigma_s=22 with reps=3 (-r.png reads back as three equal channels;
     K2), then the product's uint8 write path ``clip(rint(q), 0, 255)``,
-    returned as uint8-valued float32.
+    returned as uint8-valued float32;
+  * ``"gf"``  -> GF(CNN, image): the same ``floor(r*255)`` reflectance,
+    guided-filtered at r=45, eps=3 with the photo (RGB, 0-255 floats) as
+    the color guide (K5), then ``clip(rint(q), 0, 255)`` (q = a*I + b
+    overshoots [0, 255]).
 
-The JAX package's ``gf`` pipeline (GF(CNN, image) r45 e3) and its
-``jax.export`` artifacts (``torch.export`` here) are not ported yet.
+The JAX package's ``jax.export`` artifacts (``torch.export`` here) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -22,16 +26,13 @@ from ..cli.decompose import decompose_planar
 from ..models.networks import ReflectanceNet
 from ..ops.bilateral_kernel import bilateral_gray_self
 from ..ops.cnn_kernel import pack_weights
+from ..ops.guided import guided_filter_planar
 
 
 def pipeline_fn(kind: str, net: ReflectanceNet, device):
-    """Serving callable for ``kind`` in {"cnn", "bf"}; ``net``'s weights
-    are packed onto ``device`` once, here."""
-    if kind == "gf":
-        raise NotImplementedError(
-            "the 'gf' pipeline waits for the guided-filter port (ROADMAP "
-            "module queue item 6)")
-    if kind not in ("cnn", "bf"):
+    """Serving callable for ``kind`` in {"cnn", "bf", "gf"}; ``net``'s
+    weights are packed onto ``device`` once, here."""
+    if kind not in ("cnn", "bf", "gf"):
         raise ValueError("unknown pipeline '{}'".format(kind))
     weights = pack_weights(net).to(torch.device(device))
 
@@ -41,11 +42,17 @@ def pipeline_fn(kind: str, net: ReflectanceNet, device):
     if kind == "cnn":
         return cnn
 
-    def bf(img_bgr_u8_planar: torch.Tensor) -> torch.Tensor:
+    def pipeline(img_bgr_u8_planar: torch.Tensor) -> torch.Tensor:
         # the -r.png byte path: floor(r*255) (a sigmoid < 1 never triggers
         # imwrite's percentile normalize)
         r_u8 = torch.floor(cnn(img_bgr_u8_planar) * 255.0)
-        q = bilateral_gray_self(r_u8, -1, 20.0, 22.0, reps=3)
+        if kind == "bf":
+            q = bilateral_gray_self(r_u8, -1, 20.0, 22.0, reps=3)
+        else:
+            # guidance = the original photo (RGB planar, 0-255)
+            guide = img_bgr_u8_planar.to(r_u8.device).flip(1).to(
+                torch.float32)
+            q = guided_filter_planar(guide, r_u8[:, None], 45, 3.0)[:, 0]
         return torch.clamp(torch.round(q), 0.0, 255.0)
 
-    return bf
+    return pipeline

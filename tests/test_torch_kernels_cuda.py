@@ -13,8 +13,12 @@ from reflectance_filtering_tpu_torch.models.networks import (
     ReflectanceNet, params_from_numpy, seeded_reference_params)
 from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
     bilateral_gray_self, bilateral_gray_self_plain)
+from reflectance_filtering_tpu_torch.ops.box_kernel import (
+    box_filter_planar, box_filter_planar_plain)
 from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
     pack_weights, reflectance_cnn, reflectance_cnn_plain)
+from reflectance_filtering_tpu_torch.ops.guided_kernel import (
+    guided_filter_fused, guided_filter_fused_plain)
 from reflectance_filtering_tpu_torch.ops.whdr_gather import (
     gather_pairs, gather_pairs_plain)
 
@@ -75,3 +79,59 @@ def test_gather_kernel_bitwise(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, exp))
     with pytest.raises(NotImplementedError):
         gather_pairs(plane.requires_grad_(), *idx)
+
+
+@pytest.mark.parametrize("border", ["reflect", "reflect101"])
+@pytest.mark.parametrize("shape,radius,normalize", [
+    ((3, 64, 96), 45, True), ((2, 37, 300), 8, True), ((1, 20, 27), 45, True),
+    ((2, 1, 40), 3, True), ((4, 70, 33), 5, False)])
+def test_box_kernel_matches_plain(dev, shape, radius, normalize, border):
+    """K4 against the block-local float32 sliding sum; (1, 20, 27) and
+    (2, 1, 40) are narrower than the window: reflection repeats.  The
+    kernel sums in float64; the plain version's float32 partials reach
+    L * w * 255 (L the padded length, at most the block of 512), so the
+    two agree to 8 float32 ulps of that, scaled like the output."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).to(dev)
+    before = box_filter_planar.launches
+    got = box_filter_planar(x, radius, border, normalize)
+    assert box_filter_planar.launches == before + 1
+    exp = box_filter_planar_plain(x, radius, border, normalize)
+    w = 2 * radius + 1
+    partial = min(max(shape[1:]) + 2 * radius, 512) * w * 255.0
+    tol = 8 * 2.0 ** -24 * partial / (w * w if normalize else 1)
+    assert (got - exp).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("n,c,h,w,radius", [
+    (2, 1, 64, 96, 45), (2, 3, 41, 53, 8), (1, 1, 40, 512, 45),
+    (1, 1, 12, 40, 45), (1, 2, 20, 27, 45), (1, 5, 23, 31, 4)])
+def test_guided_kernel_matches_plain(dev, n, c, h, w, radius):
+    """K5 against its plain version (the generic planar path over the
+    plain box) on uint8-valued images: within 1 uint8 level, equal on
+    >= 99.9% of pixels, and 0.05 in float (the JAX package's own gate
+    between its guided paths).  (40, 512) and (12, 40) are narrower than
+    the window; C=5 runs as two kernel calls, each counted."""
+    rng = np.random.RandomState(5)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, c, h, w) * 256).astype(
+        np.float32)).to(dev)
+    before = guided_filter_fused.launches
+    got = guided_filter_fused(g, s, radius, 3.0)
+    assert guided_filter_fused.launches == before + -(-c // 3)
+    exp = guided_filter_fused_plain(g, s, radius, 3.0)
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 0.05
+
+
+def test_guided_kernel_refuses_bad_shapes(dev):
+    g = torch.zeros(1, 3, 8, 8, device=dev)
+    with pytest.raises(ValueError):
+        guided_filter_fused(g, torch.zeros(2, 1, 8, 8, device=dev), 2, 3.0)
+    with pytest.raises(ValueError, match="grid limit"):
+        guided_filter_fused(torch.zeros(70000, 3, 1, 1, device=dev),
+                            torch.zeros(70000, 1, 1, 1, device=dev), 2, 3.0)
+    with pytest.raises(ValueError, match="grid limit"):
+        box_filter_planar(torch.zeros(70000, 1, 1, device=dev), 2)

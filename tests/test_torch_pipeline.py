@@ -95,9 +95,13 @@ def test_bf_slice_matches_jax(net_params):
 
 
 def test_pipeline_kinds():
+    """cnn, bf and gf are served; the bilateral grid (ROADMAP module item
+    9) is an approximate CLI mode, never a serving pipeline."""
     net = ReflectanceNet()
-    with pytest.raises(NotImplementedError, match="guided"):
-        pipeline_fn("gf", net, "cpu")
+    for kind in ("cnn", "bf", "gf"):
+        assert callable(pipeline_fn(kind, net, "cpu"))
+    with pytest.raises(ValueError, match="bilateral_grid"):
+        pipeline_fn("bilateral_grid", net, "cpu")
     with pytest.raises(ValueError):
         pipeline_fn("nope", net, "cpu")
 
@@ -168,7 +172,7 @@ def test_cli_errors_and_help(capsys, tmp_path, photo_png):
                     "--guidance_in", photo_png, "--path_out", str(tmp_path),
                     "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfilt.main(["--filter_type=guided", "--sigma_color=3",
+        tfilt.main(["--filter_type=bilateral_grid", "--sigma_color=3",
                     "--sigma_spatial=45", "--filename_in", photo_png,
                     "--guidance_in", photo_png, "--path_out", str(tmp_path),
                     "--device", "cpu"])
