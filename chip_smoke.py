@@ -12,10 +12,16 @@ Phases (any failure exits nonzero before the result line):
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
-              --subsample=4 planes), plus degenerate shapes, gated;
+              --subsample=4 planes; the joint bilateral K6 at the JAX
+              bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
+              photo), float with a 3-plane joint), plus degenerate shapes,
+              gated;
   3b. parity  the guided filter on cuda against the golden fixtures
               (tests/fixtures/guided_golden.npz), every r in {3, 45, 52} x
               eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
+              the color self-guided bilateral on cuda against
+              cv2.bilateralFilter at 256x256 and 512x768, c20 s22 and c30
+              s8 (<= 1 level, < 2% differing, |dWHDR| < 0.001);
   4. serving  3 requests of 32 uint8 BGR 256x256 photos through
               utils.serving.pipeline_fn("bf") and whdr_batch, then 3 through
               pipeline_fn("gf") and whdr_batch; every launch counter is reset
@@ -23,18 +29,26 @@ Phases (any failure exits nonzero before the result line):
               against the same pipeline through the plain versions;
   5. CLIs     the decompose and filter CLIs' functions on a synthetic PNG
               on cuda (seeded weights: the trained model is not shipped):
-              bilateral c20 s22, guided c3 s45, and guided with
-              --subsample=4 (the box kernel's path, held against the same
-              filter on the CPU);
-  6. times    CUDA-event times of each kernel and its plain version, and
-              both slices' images/s (not gated);
+              bilateral c20 s22 on the -r.png by itself, on the -r.png
+              guided by the photo and on the photo by itself (the last two
+              held against the same call on the CPU), guided c3 s45, and
+              guided with --subsample=4 (the box kernel's path, held
+              against the same filter on the CPU); and
+              joint_bilateral_filter_fast, the float filter's entry point
+              (the width-sharded filter's, not ported yet), called
+              directly and held against the CPU;
+  6. times    CUDA-event times of each kernel and its plain version, both
+              slices' images/s, and the MP/s of the color-self and
+              BF(reflectance, photo) bilateral (not gated);
   7. profile  each slice's device busy time per batch and per-kernel
               device times (torch.profiler), and its idle share against
               phase 6's time in the same run (not gated).
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
-the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI)
-and its measured error and times; the last line is
+the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
+K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
+color-self runs, and the direct joint_bilateral_filter_fast call) and its
+measured error and times; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -51,6 +65,16 @@ import torch
 B, H, W, K = 32, 256, 256, 1181       # the main path's shapes
 SIGMA_C, SIGMA_S = 20.0, 22.0
 K2_SUBSET = 4                         # images for the slow plain bilateral
+BF_N = 8                              # K6 batch: the JAX bench's (bench.py:458)
+K6_SUBSET = 2                         # images for K6's plain versions
+# K6's instantiations: (joint planes, src planes, self-guided, u8 tile)
+K6_INSTANCES = [(3, 3, True, True)] + [
+    (cj, cs, False, u8) for u8 in (True, False) for cj in (1, 3)
+    for cs in (1, 3)]
+# the instantiation each of K6's wrappers runs on its main path
+K6_MAIN = {"bilateral_color_self": (3, 3, True, True),
+           "bilateral_packed_joint": (3, 1, False, True),
+           "bilateral_joint": (3, 1, False, False)}
 GF_R, GF_EPS = 45, 3.0                # GF(CNN, image): README c3 s45
 BIG_PLANE = (1, 2160, 3840)           # one 4K plane for the box kernel
 PROFILE_BATCHES = 5
@@ -139,10 +163,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from reflectance_filtering_tpu_torch.cli import decompose as dec_cli
     from reflectance_filtering_tpu_torch.cli import filter as filt_cli
-    from reflectance_filtering_tpu_torch.losses.whdr import whdr_batch
+    from reflectance_filtering_tpu_torch.losses.whdr import whdr, whdr_batch
     from reflectance_filtering_tpu_torch.models.networks import (
         ReflectanceNet, params_from_numpy, seeded_reference_params)
     from reflectance_filtering_tpu_torch.ops import _build
+    from reflectance_filtering_tpu_torch.ops.bilateral import (
+        joint_bilateral_filter_u8, opencv_bilateral_params)
+    from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
+        bilateral_color_self_batched, bilateral_joint_plain,
+        bilateral_packed_joint_batched, joint_bilateral_filter_fast,
+        joint_bilateral_planar_batched)
     from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
         bilateral_gray_self, bilateral_gray_self_plain)
     from reflectance_filtering_tpu_torch.ops.box_kernel import (
@@ -187,6 +217,7 @@ def main():
     print("== 3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
     grng = np.random.RandomState(args.seed + 1)   # the gf slice's inputs
+    brng = np.random.RandomState(args.seed + 2)   # K6's inputs
     params = seeded_reference_params(args.seed)
     net = ReflectanceNet()
     net.load_state_dict(params_from_numpy(params))
@@ -307,6 +338,62 @@ def main():
                   "K5 {}: <= 1 uint8 level, >= 99.9% equal".format(name))
         errs["guided_filter"] = worst
 
+        # K6 at the JAX bench's shapes (bench.py:458-486): the photos by
+        # themselves, BF(reflectance, photo) with the photo as the 3-plane
+        # joint, and the float filter (3-plane joint, one src plane) on
+        # non-integer values; the kernel on all 8 images, its plain
+        # version on the first K6_SUBSET; then a frame smaller than the
+        # radius (reflection repeats)
+        radius, gcc, gsc, _ = opencv_bilateral_params(-1, SIGMA_C, SIGMA_S)
+
+        def floats(*shape):
+            return torch.from_numpy(
+                (brng.rand(*shape) * 255).astype(np.float32)).to(dev)
+
+        def u8s(*shape):
+            return torch.floor(floats(*shape) * (256 / 255))
+
+        def k6_run(instance, planes):
+            """The K6 wrapper of ``instance`` on planes {(u8 tile, count):
+            tensor}: (its output, its joint, its src)."""
+            cj, cs, self_guided, u8_tile = instance
+            j = planes[(u8_tile, cj)]
+            if self_guided:
+                return bilateral_color_self_batched(j, -1, SIGMA_C,
+                                                    SIGMA_S), j, j
+            s = planes[(u8_tile, cs)]
+            fn = (bilateral_packed_joint_batched if u8_tile
+                  else joint_bilateral_planar_batched)
+            return fn(j, s, -1, SIGMA_C, SIGMA_S), j, s
+
+        k6_planes = {(True, 3): imgs[:BF_N].to(torch.float32).contiguous(),
+                     (True, 1): r_u8[:BF_N, None].contiguous(),
+                     (False, 3): floats(BF_N, 3, H, W),
+                     (False, 1): floats(BF_N, 1, H, W)}
+        small = u8s(1, 3, 20, 27)
+        small_planes = {(u8_tile, c): small[:, :c].contiguous()
+                        for u8_tile in (True, False) for c in (1, 3)}
+        for name, instance in K6_MAIN.items():
+            for shape, planes in (("{}x{}x{}".format(BF_N, H, W), k6_planes),
+                                  ("1x20x27", small_planes)):
+                qk, j, s = k6_run(instance, planes)
+                jj = j[:K6_SUBSET]
+                qp = bilateral_joint_plain(
+                    jj, jj if s is j else s[:K6_SUBSET], radius, gcc, gsc)
+                qk = qk[:K6_SUBSET]
+                torch.cuda.synchronize()
+                err = (qk - qp).abs().max().item()
+                if planes is k6_planes:
+                    errs[name] = err
+                dl = (u8(qk) - u8(qp)).abs()
+                eq = (dl == 0).float().mean().item()
+                print("K6 {} {}: max|d|={:.3e}  uint8 max {:.0f} level, "
+                      "{:.4%} equal".format(name, shape, err,
+                                            dl.max().item(), eq))
+                check(dl.max().item() <= 1 and eq >= 0.999,
+                      "K6 {} {}: <= 1 uint8 level, >= 99.9% equal".format(
+                          name, shape))
+
     print("== 3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "fixtures", "guided_golden.npz")
@@ -330,6 +417,27 @@ def main():
                   "guided {} within 1 uint8 level of the fixtures {}".format(
                       tag, worst))
 
+    print("== 3b. color self-guided bilateral on cuda vs cv2.bilateralFilter")
+    import cv2
+    judg = torch.from_numpy(make_synthetic_comps(args.seed, K))
+    for shape in ((256, 256), (512, 768)):
+        photo = np.ascontiguousarray(np.moveaxis(
+            photos(brng, 1, *shape)[0], 0, -1))
+        for sc, ss in ((20.0, 22.0), (30.0, 8.0)):
+            got = joint_bilateral_filter_u8(photo, photo, -1, sc, ss,
+                                            device=dev)
+            ref = cv2.bilateralFilter(photo, -1, sc, ss)
+            d = np.abs(got.astype(int) - ref.astype(int))
+            dw = abs(whdr(torch.from_numpy(got[..., ::-1] / 255.0), judg)
+                     - whdr(torch.from_numpy(ref[..., ::-1] / 255.0), judg))
+            print("color-self {}x{} c{} s{}: max {} level, {:.4%} differ, "
+                  "|dWHDR|={:.2e}".format(*shape, sc, ss, d.max(),
+                                          (d > 0).mean(), dw.item()))
+            check(d.max() <= 1 and (d > 0).mean() < 0.02
+                  and dw.item() < 1e-3,
+                  "color-self {}x{} c{} s{} matches cv2.bilateralFilter"
+                  .format(*shape, sc, ss))
+
     print("== 4. serving: 3 requests through pipeline_fn('bf') + whdr_batch")
     requests = [torch.from_numpy(photos(rng, B, H, W)).to(dev)
                 for _ in range(3)]
@@ -341,7 +449,10 @@ def main():
                 "bilateral_gray_self": bilateral_gray_self,
                 "whdr_gather": gather_pairs,
                 "box_filter": box_filter_planar,
-                "guided_filter": guided_filter_fused}
+                "guided_filter": guided_filter_fused,
+                "bilateral_joint": joint_bilateral_planar_batched,
+                "bilateral_color_self": bilateral_color_self_batched,
+                "bilateral_packed_joint": bilateral_packed_joint_batched}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -420,7 +531,6 @@ def main():
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
 
     print("== 5. CLIs on cuda")
-    import cv2
     with tempfile.TemporaryDirectory() as tmp:
         photo = np.moveaxis(photos(rng, 1, H, W)[0], 0, -1)
         png = os.path.join(tmp, "smoke.png")
@@ -477,6 +587,46 @@ def main():
         check(d <= 1, "guided CLI --subsample=4 within 1 level of "
               "fast_guided_filter_u8 on the CPU (max {})".format(d))
 
+        # bilateral c20 s22 on K6: the -r.png guided by the photo, and the
+        # photo by itself; each file against the same call on the CPU
+        joint_dir = os.path.join(tmp, "joint")
+        os.mkdir(joint_dir)
+        for case, (src_png, counter) in {
+                "BF(reflectance, photo)": (r_png, "bilateral_packed_joint"),
+                "color-self": (png, "bilateral_color_self")}.items():
+            reset_launches()
+            filt_cli.main(["--filter_type=bilateral", "--sigma_color=20",
+                           "--sigma_spatial=22", "--filename_in", src_png,
+                           "--guidance_in", png, "--path_out", joint_dir,
+                           "--device", "cuda"])
+            launches[counter] = read_launches(
+                "bilateral CLI " + case, (counter,))[counter]
+            name = os.path.basename(src_png)[:-4] + "_bilateral_c20.0s22.0.png"
+            got = cv2.imread(os.path.join(joint_dir, name)).astype(int)
+            want = filt_cli.apply_filter(
+                "bilateral", cv2.imread(src_png), cv2.imread(png), 20.0, 22.0,
+                device="cpu")
+            d = np.abs(got - want.astype(int)).max()
+            check(d <= 1, "bilateral CLI {} within 1 level of the same call "
+                  "on the CPU (max {})".format(case, d))
+
+        # the float filter's entry point (the width-sharded filter calls
+        # it in the JAX package), called directly: photo joint, gray src
+        reset_launches()
+        r_gray = cv2.imread(r_png)[..., 0].astype(np.float32)
+        fast = joint_bilateral_filter_fast(
+            torch.from_numpy(photo).to(dev), torch.from_numpy(r_gray).to(dev),
+            -1, SIGMA_C, SIGMA_S)
+        launches["bilateral_joint"] = read_launches(
+            "joint_bilateral_filter_fast", ("bilateral_joint",))[
+                "bilateral_joint"]
+        want = joint_bilateral_filter_fast(photo, r_gray, -1, SIGMA_C,
+                                           SIGMA_S)
+        err = (fast.cpu() - want).abs().max().item()
+        check(fast.shape == (H, W) and err <= 1e-3,
+              "joint_bilateral_filter_fast on cuda within 1e-3 of the CPU "
+              "(max {:.2e})".format(err))
+
     print("== 6. times (CUDA events; inputs resident on the card)")
     times = {}
     with torch.no_grad():
@@ -514,6 +664,21 @@ def main():
                                                       GF_EPS), 3))
         gf_ms = time_ms(
             lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]), 10)
+        # every instantiation of K6 at phase 3's 8 x 256x256 planes, the
+        # kernels back to back so that no plain loop idles the card between
+        # them; then the plain versions, host-bound loops of 3,421 taps,
+        # once each without a warm-up
+        k6_ms = {instance: time_ms(lambda: k6_run(instance, k6_planes), 20)
+                 for instance in K6_INSTANCES}
+        k6_times = {}
+        for instance in K6_INSTANCES:
+            _, j, s = k6_run(instance, k6_planes)
+            k6_times[instance] = (
+                k6_ms[instance],
+                time_ms(lambda: bilateral_joint_plain(j, s, radius, gcc,
+                                                      gsc), 1, warmup=0))
+        for name, instance in K6_MAIN.items():
+            times[name] = k6_times[instance]
     for name, (ms, plain_ms) in times.items():
         print("{}: kernel {:.4f} ms, plain {:.4f} ms at the main path's "
               "shapes".format(name, ms, plain_ms))
@@ -527,6 +692,15 @@ def main():
     print("gf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
           "({:.2f} MP/s)".format(gf_ms, B, B / gf_ms * 1e3,
                                  B * H * W / gf_ms / 1e3))
+    for (cj, cs, self_guided, u8_tile), (ms, plain_ms) in k6_times.items():
+        print("K6 {} cj={} cs={}{} {}x{}x{}: kernel {:.4f} ms, plain {:.4f} "
+              "ms".format("u8" if u8_tile else "float", cj, cs,
+                          " self" if self_guided else "", BF_N, H, W, ms,
+                          plain_ms))
+    for name, what in (("bilateral_color_self", "color-self"),
+                       ("bilateral_packed_joint", "BF(reflectance, photo)")):
+        print("{} bilateral c20 s22, {} x {}x{}: {:.2f} MP/s".format(
+            what, BF_N, H, W, BF_N * H * W / times[name][0] / 1e3))
 
     print("== 7. profile: device time per batch (torch.profiler, {} "
           "batches each)".format(PROFILE_BATCHES))
@@ -562,6 +736,15 @@ def main():
                        "reflectance_filtering_tpu/ops/box_pallas.py:86"),
         "guided_filter": ("reflectance_filtering_tpu_torch/csrc/guided.cu",
                           "reflectance_filtering_tpu/ops/guided_mxu.py:82"),
+        "bilateral_joint": (
+            "reflectance_filtering_tpu_torch/csrc/bilateral_joint.cu",
+            "reflectance_filtering_tpu/ops/bilateral_pallas.py:90"),
+        "bilateral_color_self": (
+            "reflectance_filtering_tpu_torch/csrc/bilateral_joint.cu",
+            "reflectance_filtering_tpu/ops/bilateral_pallas.py:431"),
+        "bilateral_packed_joint": (
+            "reflectance_filtering_tpu_torch/csrc/bilateral_joint.cu",
+            "reflectance_filtering_tpu/ops/bilateral_pallas.py:661"),
     }
     # each kernel's launches in the run of its own path
     launches["box_filter"] = cli_launches["box_filter"]

@@ -10,9 +10,12 @@ the ``--subsample`` fast mode) and the same no-args help with suggested
 parameter combinations.  Filtering happens in uint8 0-255 space, as in the
 reference.
 
-Ported so far: ``bilateral`` and ``guided`` (exact, and ``--subsample N``,
-the Fast Guided Filter).  ``bilateral_grid`` raises NotImplementedError
-naming its ROADMAP item.
+Ported so far: ``bilateral``, for every pairing of input and guidance
+(the -r.png by itself, a color photo by itself as cv2.bilateralFilter, the
+-r.png guided by the photo, gray or color either way), each on a CUDA
+kernel (K2 or K6) on ``--device cuda``; and ``guided`` (exact, and
+``--subsample N``, the Fast Guided Filter).  ``bilateral_grid`` raises
+NotImplementedError naming its ROADMAP item.
 
   python -m reflectance_filtering_tpu_torch.cli.filter \\
       --filter_type=bilateral --sigma_color=20 --sigma_spatial=22 \\
@@ -112,7 +115,8 @@ def main(argv=None):
     parser.add_argument("--filter_type",
                         help="""Which filter to choose,
                                 the guided filter (guided) or
-                                the joint bilateral filter (bilateral).
+                                the joint bilateral filter (bilateral;
+                                any gray or color input and guidance).
                                 bilateral_grid is not ported yet.""")
     parser.add_argument("--subsample", type=int, default=1,
                         help="""guided only: >1 runs the Fast Guided

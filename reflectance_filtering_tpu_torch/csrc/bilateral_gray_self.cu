@@ -26,25 +26,17 @@
 // diverges.  expf, not the __expf intrinsic: the fast one is a later
 // change, once it is shown to hold the uint8 gate.
 //
-// Borders are reflected by index, in the kernel, with period 2(n-1):
-// reflection repeats when the radius exceeds the image (as OpenCV's
-// borderInterpolate and numpy's "reflect" pad do), and a 1-pixel-wide
-// dimension maps every index to 0.
+// Borders are reflected by index, in the kernel (reflect101, shared with K6
+// in bilateral_common.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bilateral_common.cuh"
 
 namespace {
 
 constexpr int kTileW = 32;
 constexpr int kTileH = 16;
-
-__device__ __forceinline__ int reflect101(int i, int n) {
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  i %= period;
-  if (i < 0) i += period;
-  return i < n ? i : period - i;
-}
 
 __global__ void __launch_bounds__(kTileW * kTileH)
 bilateral_gray_self_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -77,10 +69,7 @@ bilateral_gray_self_kernel(const float* __restrict__ x, float* __restrict__ out,
   float acc = 0.0f;
   float wsum = 0.0f;
   for (int dy = -radius; dy <= radius; ++dy) {
-    const int rem = r2 - dy * dy;
-    int dxmax = static_cast<int>(sqrtf(static_cast<float>(rem)));
-    while (dxmax * dxmax > rem) --dxmax;
-    while ((dxmax + 1) * (dxmax + 1) <= rem) ++dxmax;
+    const int dxmax = disk_half_width(r2 - dy * dy);
     const float* row = c + dy * sw;
     const float fy2 = static_cast<float>(dy * dy);
     for (int dx = -dxmax; dx <= dxmax; ++dx) {

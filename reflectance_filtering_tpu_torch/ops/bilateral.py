@@ -15,11 +15,12 @@ sigmaSpace)`` on uint8 images):
     on the uint8 output (cvRound).
 
 ``joint_bilateral_filter`` is the plain float filter, a loop over the tap
-list that is the twin of the JAX ``_jbf_scan``.  ``joint_bilateral_filter_u8``
-keeps the JAX dispatch: the self-guided gray case (the BF(CNN,CNN) -r.png)
-goes to the K2 wrapper (ops/bilateral_kernel.py), which runs its kernel on
-CUDA; the other cases have no Hopper kernel yet and run the plain filter
-on the CPU only.
+list that is the twin of the JAX ``_jbf_scan`` (the tests' oracle).
+``joint_bilateral_filter_u8`` keeps the JAX package's TPU dispatch on every
+device: the self-guided gray case (the BF(CNN,CNN) -r.png) goes to the K2
+wrapper (ops/bilateral_kernel.py), color self-guided and joint != src to
+the K6 wrappers (ops/bilateral_joint_kernel.py); each runs its kernel on
+CUDA and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -129,13 +130,19 @@ def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
                               sigma_color: float = 20.0,
                               sigma_space: float = 22.0,
                               device="cpu") -> np.ndarray:
-    """uint8 wrapper with cvRound (round-half-to-even) output.
+    """uint8 wrapper with cvRound (round-half-to-even) output, on
+    ``device``.
 
-    joint == src with identical channels (the BF(CNN,CNN) -r.png case)
-    runs the gray self-guided filter (K2) on ``device``.  Color self-guided
-    and joint != src have no Hopper kernel yet (ROADMAP kernel queue items
-    8 and 10): on CUDA they raise, on the CPU they run the plain float
-    filter."""
+    The JAX package's dispatch (reflectance_filtering_tpu/ops/
+    bilateral.py:139-180): joint == src with identical channels (the
+    BF(CNN,CNN) -r.png) runs the gray self-guided filter (K2); joint == src
+    in color runs the color self-guided filter (cv2.bilateralFilter); every
+    other pairing runs the u8 joint filter on the joint and src reduced to
+    their distinct planes (a mono joint to one plane standing for its
+    channel count, a mono src to one plane, repeated back after)."""
+    from .bilateral_joint_kernel import (bilateral_color_self_batched,
+                                         bilateral_packed_joint_batched,
+                                         check_channels)
     from .bilateral_kernel import bilateral_gray_self
 
     device = torch.device(device)
@@ -146,6 +153,11 @@ def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
     # a replicated-channel joint contributes |delta| per channel to cv2's
     # summed-abs diff; a genuinely 1-channel array does not
     j_reps = j.shape[-1] if j.ndim == 3 else 1
+
+    def planar(a):  # [H, W, C] -> [1, C, H, W] float32 on device
+        return torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+            a.astype(np.float32), -1, 0))[None]).to(device)
+
     if self_joint and mono:
         plane = torch.as_tensor(
             (j if j.ndim == 2 else j[..., 0]).astype(np.float32),
@@ -154,13 +166,23 @@ def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
                                   sigma_space, reps=j_reps)[0].cpu().numpy()
         if j.ndim == 3:
             out = np.repeat(out[..., None], j.shape[-1], axis=-1)
-    elif device.type != "cpu":
-        raise NotImplementedError(
-            "joint_bilateral_filter_u8 on {}: only joint == src with "
-            "identical channels has a Hopper kernel; color self-guided and "
-            "joint != src are ROADMAP kernel queue items 8 and 10 (pass "
-            "device='cpu' for the plain filter)".format(device))
+    elif self_joint and j.ndim == 3 and j.shape[-1] == 3:
+        out = bilateral_color_self_batched(
+            planar(j), d, sigma_color, sigma_space)[0].permute(
+                1, 2, 0).cpu().numpy()
     else:
-        out = joint_bilateral_filter(j, s, d, sigma_color,
-                                     sigma_space).numpy()
+        s_mono = s.ndim == 2 or bool((s[..., :1] == s).all())
+        jp = (j[..., None] if j.ndim == 2
+              else j[..., :1] if mono else j)
+        sp = (s[..., None] if s.ndim == 2
+              else s[..., :1] if s_mono else s)
+        check_channels(jp.shape[-1], sp.shape[-1])
+        q = bilateral_packed_joint_batched(
+            planar(jp), planar(sp), d, sigma_color, sigma_space,
+            joint_reps=j_reps if mono else 1)[0]
+        out = q.permute(1, 2, 0).cpu().numpy()
+        if s.ndim == 2:
+            out = out[..., 0]
+        elif s_mono and s.shape[-1] > 1:
+            out = np.repeat(out[..., :1], s.shape[-1], axis=-1)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)

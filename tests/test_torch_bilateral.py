@@ -106,11 +106,59 @@ def test_u8_dispatch_matches_jax(case, rng):
     _u8_gate(got, exp)
 
 
-def test_u8_dispatch_raises_without_kernel_on_cuda(rng):
-    joint = np.floor(rng.rand(8, 9, 3) * 256).astype(np.uint8)
-    with pytest.raises(NotImplementedError, match="items 8 and 10"):
-        tbil.joint_bilateral_filter_u8(joint, joint, -1, 20.0, 3.0,
+def test_u8_dispatch_raises_without_kernel_on_cuda(rng, monkeypatch):
+    """Every case of the dispatch reaches the wrapper that it names (K2's
+    or one of K6's), with the planes and joint_reps of the JAX dispatch;
+    only a plane count that no kernel takes raises, on any device, before
+    a tensor is made."""
+    from reflectance_filtering_tpu_torch.ops import bilateral_joint_kernel
+    from reflectance_filtering_tpu_torch.ops import bilateral_kernel
+    calls = []
+
+    def recorder(name):
+        def wrapper(*args, **kwargs):
+            shapes = [tuple(a.shape) for a in args
+                      if isinstance(a, torch.Tensor)]
+            calls.append((name, shapes, kwargs.get("reps",
+                                                   kwargs.get("joint_reps"))))
+            planes = args[1] if name == "packed_joint" else args[0]
+            return torch.zeros_like(planes)
+        return wrapper
+
+    monkeypatch.setattr(bilateral_kernel, "bilateral_gray_self",
+                        recorder("gray_self"))
+    monkeypatch.setattr(bilateral_joint_kernel, "bilateral_color_self_batched",
+                        recorder("color_self"))
+    monkeypatch.setattr(bilateral_joint_kernel,
+                        "bilateral_packed_joint_batched",
+                        recorder("packed_joint"))
+    g = np.floor(rng.rand(8, 9) * 256).astype(np.uint8)
+    g3 = np.stack([g] * 3, axis=-1)
+    color = np.floor(rng.rand(8, 9, 3) * 256).astype(np.uint8)
+    cases = [
+        (g3, g3, ("gray_self", [(1, 8, 9)], 3), (8, 9, 3)),
+        (g, g, ("gray_self", [(1, 8, 9)], 1), (8, 9)),
+        (color, color, ("color_self", [(1, 3, 8, 9)], None), (8, 9, 3)),
+        (color, g3, ("packed_joint", [(1, 3, 8, 9), (1, 1, 8, 9)], 1),
+         (8, 9, 3)),
+        (g3, color, ("packed_joint", [(1, 1, 8, 9), (1, 3, 8, 9)], 3),
+         (8, 9, 3)),
+        (g, color, ("packed_joint", [(1, 1, 8, 9), (1, 3, 8, 9)], 1),
+         (8, 9, 3)),
+        (color, g, ("packed_joint", [(1, 3, 8, 9), (1, 1, 8, 9)], 1),
+         (8, 9)),
+    ]
+    for joint, src, call, shape in cases:
+        calls.clear()
+        out = tbil.joint_bilateral_filter_u8(joint, src, -1, 20.0, 3.0,
+                                             device="cpu")
+        assert calls == [call] and out.shape == shape, (call, calls)
+    calls.clear()
+    two = np.floor(rng.rand(8, 9, 2) * 256).astype(np.uint8)
+    with pytest.raises(ValueError, match="1 or 3"):
+        tbil.joint_bilateral_filter_u8(two, color, -1, 20.0, 3.0,
                                        device="cuda")
+    assert calls == []
 
 
 def test_kernel_wrapper_checks_and_cpu_dispatch(rng):

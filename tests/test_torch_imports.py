@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     assert not out["cuda_initialized"]
     for name in ("cli.decompose", "cli.filter", "losses.whdr",
                  "models.caffe_io", "models.networks", "ops._build",
-                 "ops.bilateral", "ops.bilateral_kernel", "ops.box_kernel",
+                 "ops.bilateral", "ops.bilateral_joint_kernel",
+                 "ops.bilateral_kernel", "ops.box_kernel",
                  "ops.boxfilter", "ops.cnn_kernel", "ops.guided",
                  "ops.guided_kernel", "ops.whdr_gather", "utils.image",
                  "utils.serving", "utils.testimages"):

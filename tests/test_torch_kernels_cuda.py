@@ -11,6 +11,9 @@ import torch
 
 from reflectance_filtering_tpu_torch.models.networks import (
     ReflectanceNet, params_from_numpy, seeded_reference_params)
+from reflectance_filtering_tpu_torch.ops import bilateral_joint_kernel as k6
+from reflectance_filtering_tpu_torch.ops.bilateral import (
+    opencv_bilateral_params)
 from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
     bilateral_gray_self, bilateral_gray_self_plain)
 from reflectance_filtering_tpu_torch.ops.box_kernel import (
@@ -67,6 +70,58 @@ def test_bilateral_kernel_refuses_too_large_a_radius(dev):
     x = torch.zeros(1, 8, 8, device=dev)
     with pytest.raises(RuntimeError, match="CUDA error"):
         bilateral_gray_self(x, -1, 20.0, 80.0)      # radius 120
+
+
+# every instantiation of K6: (cj, cs, self-guided, u8 storage)
+K6_INSTANCES = [(3, 3, True, True)] + [
+    (cj, cs, False, u8) for u8 in (True, False) for cj in (1, 3)
+    for cs in (1, 3)]
+
+
+@pytest.mark.parametrize("sigma_space", [3.0, 22.0])
+@pytest.mark.parametrize("cj,cs,self_guided,u8", K6_INSTANCES)
+def test_bilateral_joint_kernel_matches_plain(dev, cj, cs, self_guided, u8,
+                                              sigma_space):
+    """K6 through its three wrappers against the plain loop over the disk:
+    u8 storage on integer values (a 1-plane joint standing for three
+    channels), float storage on non-integer values; within 1 uint8 level,
+    equal on >= 99.9%, and 1e-3 in float (as K2)."""
+    rng = np.random.RandomState(6)
+
+    def planes(c):
+        v = rng.rand(2, c, 64, 80) * 255
+        return torch.from_numpy((np.floor(v * 256 / 255) if u8 else v)
+                                .astype(np.float32)).to(dev)
+
+    joint = planes(cj)
+    src = joint if self_guided else planes(cs)
+    reps = 3 if u8 and cj == 1 else 1
+    if self_guided:
+        fn, args = k6.bilateral_color_self_batched, (joint,)
+    elif u8:
+        fn, args = k6.bilateral_packed_joint_batched, (joint, src)
+    else:
+        fn, args = k6.joint_bilateral_planar_batched, (joint, src)
+    kwargs = {"joint_reps": reps} if fn is k6.bilateral_packed_joint_batched \
+        else {}
+    before = fn.launches
+    got = fn(*args, -1, 20.0, sigma_space, **kwargs)
+    assert fn.launches == before + 1
+    radius, gcc, gsc, _ = opencv_bilateral_params(-1, 20.0, sigma_space)
+    exp = k6.bilateral_joint_plain(joint, src, radius, gcc * reps * reps, gsc)
+    d = (torch.round(got) - torch.round(exp)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 1e-3
+
+
+def test_bilateral_joint_kernel_refuses_too_large_a_radius(dev):
+    """Float 3 + 3 planes at sigma_s 30 (radius 45) need 310 KB of shared
+    memory: a ValueError naming radius 37, before any launch."""
+    x = torch.zeros(1, 3, 8, 8, device=dev)
+    before = k6.joint_bilateral_planar_batched.launches
+    with pytest.raises(ValueError, match="largest radius .* is 37"):
+        k6.joint_bilateral_planar_batched(x, x, -1, 20.0, 30.0)
+    assert k6.joint_bilateral_planar_batched.launches == before
 
 
 def test_gather_kernel_bitwise(dev):
