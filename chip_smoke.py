@@ -16,6 +16,13 @@ Phases (any failure exits nonzero before the result line):
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
               photo), float with a 3-plane joint), plus degenerate shapes,
               gated;
+  3t. train   the training kernels against their plain versions on the
+              card: the fused skip-layer trunk K7 (forward against the plain
+              trunk, backward against plain autograd) at the flagship's
+              20 x 256x256 and four other configs on a 37x53 frame, and
+              the WHDR scatter-add K8 against index_put_(accumulate=True)
+              with forced collisions; each backward launched twice and held
+              bitwise equal;
   3b. parity  the guided filter on cuda against the golden fixtures
               (tests/fixtures/guided_golden.npz), every r in {3, 45, 52} x
               eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
@@ -27,7 +34,20 @@ Phases (any failure exits nonzero before the result line):
               pipeline_fn("gf") and whdr_batch; every launch counter is reset
               before each path and checked after it, and each result is held
               against the same pipeline through the plain versions;
-  5. CLIs     the decompose and filter CLIs' functions on a synthetic PNG
+  4t. train   train.loop.fit for 20 steps of batch 20 x 256x256, K = 1181,
+              on a seeded synthetic set of 40 images resident on the card,
+              once through the kernels (K7 forward and backward, K3, K8:
+              each counted) and once through the plain versions on the card
+              (no kernel counted): every step's loss_total within 1e-3
+              relative; then 10 steps, a checkpoint, a resume for 10 more,
+              against the 20 uninterrupted steps (params within 1e-6);
+  5. CLIs     the train CLI's fit stage on cuda with the flagship flags
+              (--iterations=40 --batch_size=20 --checkpoint_interval=20) on
+              a synthetic 256x256 .npz tree, warm-started from a seeded
+              .npz, its results tree checked, and the same run with
+              --device cpu: final val WHDR within 0.001, final params within
+              1e-3;
+              the decompose and filter CLIs' functions on a synthetic PNG
               on cuda (seeded weights: the trained model is not shipped):
               bilateral c20 s22 on the -r.png by itself, on the -r.png
               guided by the photo and on the photo by itself (the last two
@@ -37,19 +57,26 @@ Phases (any failure exits nonzero before the result line):
               joint_bilateral_filter_fast, the float filter's entry point
               (the width-sharded filter's, not ported yet), called
               directly and held against the CPU;
-  6. times    CUDA-event times of each kernel and its plain version, both
-              slices' images/s, and the MP/s of the color-self and
-              BF(reflectance, photo) bilateral (not gated);
-  7. profile  each slice's device busy time per batch and per-kernel
-              device times (torch.profiler), and its idle share against
-              phase 6's time in the same run (not gated).
+  6. times    CUDA-event times of each kernel and its plain version (and of
+              the one PyTorch call computing the same function, where there
+              is one), both slices' images/s, the MP/s of the color-self and
+              BF(reflectance, photo) bilateral, and the training step's ms
+              and images/s on the kernels and on the plain versions (not
+              gated);
+  7. profile  each slice's and the training step's device busy time and
+              per-kernel device times (torch.profiler), and the idle share
+              against phase 6's time in the same run (not gated).
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
 the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
 K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
-color-self runs, and the direct joint_bilateral_filter_fast call) and its
-measured error and times; the last line is
-{"ok": true, "device": {...}}.
+color-self runs, and the direct joint_bilateral_filter_fast call; K7's
+forward and backward and K8: the 20 training steps), its measured error and
+times, and its bound: the larger of the bytes it must move over 3.35 TB/s
+and its operations, each kind over its rate: float32 operations over 66.9
+TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), expf over the SFU's 4.18 T/s
+(16 per SM per clock), shared-memory table loads over 8.36 T/s (32 four-byte
+words per SM per clock); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -78,6 +105,48 @@ K6_MAIN = {"bilateral_color_self": (3, 3, True, True),
 GF_R, GF_EPS = 45, 3.0                # GF(CNN, image): README c3 s45
 BIG_PLANE = (1, 2160, 3840)           # one 4K plane for the box kernel
 PROFILE_BATCHES = 5
+# the training slice: the JAX bench's training shape (bench.py:596-634)
+TB, TRAIN_N, TRAIN_VAL_N, TRAIN_STEPS = 20, 40, 20, 20
+TRAIN_FLAGS = ["--networkType=convStaticSkipLayers", "--numLayers=5",
+               "--num_filters_log=5", "--kernel_pad=0",
+               "--RS_est_mode=rDirectly"]
+# K7 off the flagship: (n, ci, f, cout) on a 37x53 frame
+K7_OTHER = [(2, 3, 16, 1), (1, 3, 32, 1), (2, 3, 128, 1), (3, 3, 16, 6)]
+# the card's peak rates for the bounds (H100 SXM)
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 132 * 128 * 2 * 1.98e9       # 66.9 TFLOP/s, FMA = 2
+SFU_S = 132 * 16 * 1.98e9                 # 4.18 T expf/s
+SMEM_LOADS_S = 132 * 32 * 1.98e9          # 8.36 T shared-memory loads/s
+
+
+def bound(flops=0.0, sfu=0.0, loads=0.0, nbytes=0.0):
+    """(least ms the card could take, "operations" or "bytes")."""
+    ops = max(flops / F32_FLOP_S, sfu / SFU_S, loads / SMEM_LOADS_S)
+    mem = nbytes / HBM_BYTES_S
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
+
+
+def trunk_fmas(shape, backward=False, input_grad=False):
+    """FMAs per pixel of K7 (forward; backward: rematerialisation, the fuse
+    head, the chain and the weight gradients)."""
+    n, ci, f, cout = shape
+    fwd = ci * f + (n - 1) * f * f + n * f * cout
+    if not backward:
+        return fwd
+    return (fwd + 2 * n * f * cout + (n - 1) * f * f + ci * f
+            + (n - 1) * f * f + (ci * f if input_grad else 0))
+
+
+def training_set(seed, n, k):
+    """A seeded synthetic training set in the loader's NHWC layout: 1/f
+    photos as linear RGB in [0, 1], and K synthetic comparisons each."""
+    from reflectance_filtering_tpu_torch.utils.image import srgb_to_rgb
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps)
+    bgr = photos(np.random.RandomState(seed), n, H, W)
+    rgb = np.ascontiguousarray(bgr[:, ::-1].transpose(0, 2, 3, 1)) / 255.0
+    return {"images": srgb_to_rgb(rgb).astype(np.float32),
+            "comparisons": make_synthetic_comps(seed + 1, k, batch=n)}
 
 
 def check(ok, msg):
@@ -127,9 +196,12 @@ def device_profile(fn, batches):
         for _ in range(batches):
             fn()
         torch.cuda.synchronize()
+    # user annotations (e.g. "Optimizer.step#Adam.step") are ranges on the
+    # device timeline that span kernels already counted: left out
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy, last, per_kernel = 0.0, float("-inf"), {}
     for start, end, name in spans:
         per_kernel[name] = per_kernel.get(name, 0.0) + end - start
@@ -150,6 +222,85 @@ def box_tol(shape, radius):
     512); 8 float32 ulps of that, normalized by the window's area."""
     w = 2 * radius + 1
     return 8 * 2.0 ** -24 * min(max(shape[1:]) + 2 * radius, 512) * 255 / w
+
+
+def check_training_kernels(dev, seed):
+    """Phase 3t: K7 and K8 against their plain versions on the card.
+    Returns the flagship's errors and its inputs, kept for phase 6."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        scatter_pairs, scatter_pairs_plain)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    errs, keep = {}, {}
+    cases = [("flagship {}x{}x{}".format(TB, H, W), (5, 3, 32, 1),
+              TB * H * W)] + [("37x53 (n, ci, f, cout)={}".format(shape),
+                               shape, 37 * 53) for shape in K7_OTHER]
+    for name, shape, p in cases:
+        n, ci, f, cout = shape
+        cfg = NetworkConfig(num_layers=n, num_filters_log=f.bit_length() - 1,
+                            rs_est_mode="RS" if cout == 6 else "rDirectly")
+        params = init_network(cfg, torch.Generator().manual_seed(seed), dev)
+        flat = k7.pack(*k7._matrices(params, n, ""))
+        flat += 0.05 * torch.randn(flat.shape, device=dev, generator=gen)
+        x = torch.rand(p, ci, device=dev, generator=gen)
+        g = torch.randn(p, cout, device=dev, generator=gen)
+        pre = k7.trunk_forward(x, flat, shape)
+        pre_p = k7.trunk_forward_plain(x, flat, shape)
+        grad, dx = k7.trunk_backward(x, g, flat, shape, True)
+        grad_p, dx_p = k7.trunk_backward_plain(x, g, flat, shape, True)
+        grad2, dx2 = k7.trunk_backward(x, g, flat, shape, True)
+        grad3, _ = k7.trunk_backward(x, g, flat, shape, False)
+        torch.cuda.synchronize()
+        fwd_err = (pre - pre_p).abs().max().item()
+        fwd_rel = fwd_err / pre_p.abs().max().item()
+        leaf_rel = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for part in (0, 1) for a, b in zip(k7.unpack(grad, shape)[part],
+                                               k7.unpack(grad_p, shape)[part]))
+        dx_rel = ((dx - dx_p).abs().max() / dx_p.abs().max()).item()
+        print("K7 {}: forward max|d|={:.3e} ({:.2e} of max); backward worst "
+              "leaf {:.2e} of its max, dx {:.2e}".format(
+                  name, fwd_err, fwd_rel, leaf_rel, dx_rel))
+        check(fwd_rel <= 1e-5, "K7 {} forward within 1e-5 of the plain "
+              "trunk".format(name))
+        check(leaf_rel <= 2e-4 and dx_rel <= 5e-5,
+              "K7 {} backward: each parameter gradient within 2e-4 of its "
+              "leaf's max, dx within 5e-5".format(name))
+        check(torch.equal(grad, grad2) and torch.equal(dx, dx2)
+              and torch.equal(grad, grad3),
+              "K7 {} backward bitwise equal on a second launch and without "
+              "dx".format(name))
+        if not keep:
+            errs["cnn_train_fwd"] = fwd_err
+            errs["cnn_train_bwd"] = (grad - grad_p).abs().max().item()
+            keep = {"x": x, "g": g, "flat": flat, "shape": shape}
+
+    # K8 at the training step's shapes, half of the points inside a 12x12
+    # corner so that many pixels are read by several points
+    b, k = TB, K
+    idx = []
+    for n_ in (H, W, H, W):
+        t = torch.randint(0, n_, (b, k), device=dev, dtype=torch.int32,
+                          generator=gen)
+        t[:, : k // 2] %= 12
+        idx.append(t)
+    g1, g2 = (torch.randn(b, k, device=dev, generator=gen) for _ in range(2))
+    got = scatter_pairs((b, H, W), *idx, g1, g2)
+    want = scatter_pairs_plain((b, H, W), *idx, g1, g2)
+    again = scatter_pairs((b, H, W), *idx, g1, g2)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    collided = (torch.stack([want != 0]).sum().item(), 2 * b * k)
+    print("K8 {}x{}x{}, K={}: max|d|={:.3e} ({:.2e} of max); {} pixels for "
+          "{} points".format(b, H, W, k, err, rel, *collided))
+    check(rel <= 1e-6, "K8 within 1e-6 of index_put_(accumulate=True)")
+    check(torch.equal(got, again), "K8 bitwise equal on a second launch")
+    errs["whdr_scatter"] = err
+    keep["scatter"] = (idx, g1, g2)
+    return errs, keep
 
 
 def main():
@@ -186,6 +337,16 @@ def main():
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         gather_pairs, gather_pairs_plain)
     from reflectance_filtering_tpu_torch.utils.serving import pipeline_fn
+    from reflectance_filtering_tpu_torch.cli import train as train_cli
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        scatter_pairs, scatter_pairs_plain)
+    from reflectance_filtering_tpu_torch.train.checkpoint import (
+        Checkpointer, load_checkpoint, save_checkpoint)
+    from reflectance_filtering_tpu_torch.train.loop import (
+        LossConfig, fit, make_optimizer, make_train_step, trainable)
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     dev = torch.device("cuda", 0)
@@ -344,7 +505,9 @@ def main():
         # non-integer values; the kernel on all 8 images, its plain
         # version on the first K6_SUBSET; then a frame smaller than the
         # radius (reflection repeats)
-        radius, gcc, gsc, _ = opencv_bilateral_params(-1, SIGMA_C, SIGMA_S)
+        # bf_radius, not radius: the guided parity loop below reuses that
+        bf_radius, gcc, gsc, _ = opencv_bilateral_params(-1, SIGMA_C,
+                                                         SIGMA_S)
 
         def floats(*shape):
             return torch.from_numpy(
@@ -379,7 +542,7 @@ def main():
                 qk, j, s = k6_run(instance, planes)
                 jj = j[:K6_SUBSET]
                 qp = bilateral_joint_plain(
-                    jj, jj if s is j else s[:K6_SUBSET], radius, gcc, gsc)
+                    jj, jj if s is j else s[:K6_SUBSET], bf_radius, gcc, gsc)
                 qk = qk[:K6_SUBSET]
                 torch.cuda.synchronize()
                 err = (qk - qp).abs().max().item()
@@ -393,6 +556,10 @@ def main():
                 check(dl.max().item() <= 1 and eq >= 0.999,
                       "K6 {} {}: <= 1 uint8 level, >= 99.9% equal".format(
                           name, shape))
+
+    print("== 3t. training kernels vs plain on the card")
+    train_errs, train_in = check_training_kernels(dev, args.seed)
+    errs.update(train_errs)
 
     print("== 3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -452,7 +619,10 @@ def main():
                 "guided_filter": guided_filter_fused,
                 "bilateral_joint": joint_bilateral_planar_batched,
                 "bilateral_color_self": bilateral_color_self_batched,
-                "bilateral_packed_joint": bilateral_packed_joint_batched}
+                "bilateral_packed_joint": bilateral_packed_joint_batched,
+                "cnn_train_fwd": k7.trunk_forward,
+                "cnn_train_bwd": k7.trunk_backward,
+                "whdr_scatter": scatter_pairs}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -529,6 +699,106 @@ def main():
                       (dl == 0).float().mean().item()))
             check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
+
+    print("== 4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "
+          "images on the card".format(TRAIN_STEPS, TB, H, W, K, TRAIN_N))
+    train_data = training_set(args.seed + 7, TRAIN_N, K)
+    flagship = NetworkConfig()
+    train_kernels = ("cnn_train_fwd", "cnn_train_bwd", "whdr_gather",
+                     "whdr_scatter")
+
+    def train_run(steps, **kw):
+        losses = []
+        state = fit(flagship, LossConfig(), train_data, steps * TB, TB,
+                    random_seed=args.seed, device=dev,
+                    progress=lambda s, n, m: losses.append(m["loss_total"]),
+                    **kw)
+        return state, losses
+
+    reset_launches()
+    state_k, loss_k = train_run(TRAIN_STEPS)
+    train_launches = read_launches("training", train_kernels)
+    reset_launches()
+    state_p, loss_p = train_run(TRAIN_STEPS, kernels=False)
+    plain_counts = read_launches("plain training", ())
+    check(all(plain_counts[name] == 0 for name in train_kernels),
+          "no training kernel launched by the plain run")
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p)]
+    print("loss_total kernels {:.6f} -> {:.6f}, plain {:.6f} -> {:.6f}; worst "
+          "step {:.2e} relative".format(loss_k[0], loss_k[-1], loss_p[0],
+                                        loss_p[-1], max(rel)))
+    check(len(loss_k) == len(loss_p) == TRAIN_STEPS
+          and all(np.isfinite(loss_k)) and max(rel) <= 1e-3,
+          "every step's loss_total within 1e-3 of the plain run")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp, "smoke", interval=10 * TB)
+        train_run(10, checkpointer=ck)
+        p10, o10, _ = load_checkpoint(ck.path(10 * TB))
+        t0 = time.perf_counter()
+        resumed, _ = train_run(TRAIN_STEPS, init_params=p10,
+                               init_opt_state=o10, base_samples=10 * TB)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) / (TRAIN_STEPS - 10) * 1e3
+    print("fit, resumed for 10 steps: {:.3f} ms per step on the host's clock "
+          "(the set's upload included; not gated)".format(fit_ms))
+    diff = max((resumed.params[layer][part] - state_k.params[layer][part])
+               .abs().max().item() for layer in state_k.params
+               for part in state_k.params[layer])
+    print("resume at step 10 against 20 uninterrupted steps: params max|d|="
+          "{:.3e}".format(diff))
+    check(resumed.samples == state_k.samples and diff <= 1e-6,
+          "10 steps + checkpoint + resume to 20 equals 20 steps (1e-6)")
+
+    print("== 5. the train CLI's fit stage on cuda and on the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "lmdbs")
+        os.makedirs(os.path.join(root, "iiw"))
+        for stem, data in (
+                ("trainValTest_train", train_data),
+                ("trainValTest_val",
+                 training_set(args.seed + 9, TRAIN_VAL_N, K))):
+            np.savez(os.path.join(root, "iiw", "{}_{}_{}_linear.npz".format(
+                stem, H, W)), images=data["images"].transpose(0, 3, 1, 2),
+                comparisons=data["comparisons"][:, :, None, :])
+        warm = os.path.join(tmp, "warm.npz")
+        save_checkpoint(warm, init_network(
+            flagship, torch.Generator().manual_seed(args.seed)))
+        cli_args = ["--stage=fit"] + TRAIN_FLAGS + [
+            "--iterations=40", "--batch_size={}".format(TB),
+            "--checkpoint_interval=20", "--height={}".format(H),
+            "--width={}".format(W), "--random_seed=0",
+            "--predictCaffemodel", warm, "--data_root", root,
+            "--experiment=smoke"]
+        cli_out = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, device)
+            reset_launches()
+            train_cli.main(cli_args + ["--results_root", out,
+                                       "--device", device])
+            if device == "cuda":
+                read_launches("train CLI on cuda", train_kernels)
+            exp = os.path.join(out, "smoke")
+            snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
+            check([s.rsplit("_", 1)[1] for s in snaps] == ["20.npz", "40.npz"],
+                  "{}: snapshots _iter_20 and _iter_40".format(device))
+            progs = os.listdir(os.path.join(exp, "progressions"))
+            check(len(progs) == 1 and os.listdir(os.path.join(exp, "scores"))
+                  and os.listdir(os.path.join(exp, "framerates")),
+                  "{}: progressions/*.json, scores/, framerates/".format(
+                      device))
+            with open(os.path.join(exp, "progressions", progs[0])) as f:
+                prog = json.load(f)["test"]
+            cli_out[device] = (prog, load_checkpoint(os.path.join(
+                exp, "snapshots", snaps[-1]))[0])
+        (prog_c, par_c), (prog_p, par_p) = cli_out["cuda"], cli_out["cpu"]
+        dw = abs(prog_c[-1]["WHDR"] - prog_p[-1]["WHDR"]) / 100.0
+        dp = max(np.abs(par_c[layer][part] - par_p[layer][part]).max()
+                 for layer in par_p for part in par_p[layer])
+        print("train CLI val WHDR cuda {} cpu {}: |d|={:.2e}; final params "
+              "max|d|={:.3e}".format([e["WHDR"] for e in prog_c],
+                                     [e["WHDR"] for e in prog_p], dw, dp))
+        check(dw <= 1e-3 and dp <= 1e-3, "train CLI on cuda against the CPU: "
+              "final val WHDR within 0.001, params within 1e-3")
 
     print("== 5. CLIs on cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -675,10 +945,52 @@ def main():
             _, j, s = k6_run(instance, k6_planes)
             k6_times[instance] = (
                 k6_ms[instance],
-                time_ms(lambda: bilateral_joint_plain(j, s, radius, gcc,
+                time_ms(lambda: bilateral_joint_plain(j, s, bf_radius, gcc,
                                                       gsc), 1, warmup=0))
         for name, instance in K6_MAIN.items():
             times[name] = k6_times[instance]
+        # the training kernels at the flagship's 20 x 256x256; the backward
+        # as the training step runs it (no input cotangent)
+        tx, tg, tflat, tshape = (train_in[key] for key in
+                                 ("x", "g", "flat", "shape"))
+        times["cnn_train_fwd"] = (
+            time_ms(lambda: k7.trunk_forward(tx, tflat, tshape), 20),
+            time_ms(lambda: k7.trunk_forward_plain(tx, tflat, tshape), 10))
+        times["cnn_train_bwd"] = (
+            time_ms(lambda: k7.trunk_backward(tx, tg, tflat, tshape, False),
+                    20),
+            time_ms(lambda: k7.trunk_backward_plain(tx, tg, tflat, tshape,
+                                                    False), 5))
+        sidx, sg1, sg2 = train_in["scatter"]
+        times["whdr_scatter"] = (
+            time_ms(lambda: scatter_pairs((TB, H, W), *sidx, sg1, sg2), 100),
+            time_ms(lambda: scatter_pairs_plain((TB, H, W), *sidx, sg1, sg2),
+                    100))
+        # the one PyTorch call computing the same function, where there is
+        # one (indices joined beforehand): advanced indexing for K3, a zeroed
+        # plane's index_put_(accumulate=True) for K8
+        bi = torch.arange(B, device=dev)[:, None].expand(B, 2 * K)
+        yi, xi = (torch.cat([idx[i], idx[i + 2]], 1).long() for i in (0, 1))
+        sb = torch.arange(TB, device=dev)[:, None].expand(TB, 2 * K)
+        sy, sx = (torch.cat([sidx[i], sidx[i + 2]], 1).long() for i in (0, 1))
+        sg = torch.cat([sg1, sg2], 1)
+        library = {
+            "whdr_gather": time_ms(lambda: plane[bi, yi, xi], 100),
+            "whdr_scatter": time_ms(lambda: torch.zeros(
+                (TB, H, W), device=dev).index_put_((sb, sy, sx), sg,
+                                                   accumulate=True), 100)}
+    # the training step as fit runs it, from the seeded flagship init on the
+    # resident set's first batch; kernels, then the plain versions
+    step_params = trainable(init_network(
+        flagship, torch.Generator().manual_seed(args.seed)), dev)
+    step, plain_step = (
+        make_train_step(flagship, LossConfig(), step_params,
+                        make_optimizer("ADAM", 1e-3, step_params),
+                        kernels=kernels) for kernels in (True, False))
+    step_in = tuple(torch.from_numpy(train_data[key][:TB]).to(dev)
+                    for key in ("images", "comparisons"))
+    step_ms = time_ms(lambda: step(*step_in), 20)
+    plain_step_ms = time_ms(lambda: plain_step(*step_in), 10)
     for name, (ms, plain_ms) in times.items():
         print("{}: kernel {:.4f} ms, plain {:.4f} ms at the main path's "
               "shapes".format(name, ms, plain_ms))
@@ -701,6 +1013,12 @@ def main():
                        ("bilateral_packed_joint", "BF(reflectance, photo)")):
         print("{} bilateral c20 s22, {} x {}x{}: {:.2f} MP/s".format(
             what, BF_N, H, W, BF_N * H * W / times[name][0] / 1e3))
+    for name, ms in library.items():
+        print("{}: one PyTorch call {:.4f} ms".format(name, ms))
+    print("training step, batch {} x {}x{}, K={}: kernels {:.3f} ms = {:.1f} "
+          "images/s; plain {:.3f} ms = {:.1f} images/s".format(
+              TB, H, W, K, step_ms, TB / step_ms * 1e3, plain_step_ms,
+              TB / plain_step_ms * 1e3))
 
     print("== 7. profile: device time per batch (torch.profiler, {} "
           "batches each)".format(PROFILE_BATCHES))
@@ -722,6 +1040,31 @@ def main():
             for kernel, ms in sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1])[:12]:
                 print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
+    busy, per_kernel = device_profile(lambda: step(*step_in),
+                                      PROFILE_BATCHES)
+    if per_kernel:
+        parts = {"K7 forward": ("trunk_fwd",),
+                 "K7 backward + block sum": ("trunk_bwd", "sum_partials"),
+                 "K3 gather": ("whdr_gather_kernel",),
+                 "K8 scatter + its memset": ("whdr_scatter", "Memset"),
+                 "Adam": ("multi_tensor_apply", "adam", "Adam")}
+        split = {part: 0.0 for part in parts}
+        split["loss glue (everything else)"] = 0.0
+        for kernel, ms in per_kernel.items():
+            part = next((p_ for p_, keys in parts.items()
+                         if any(key in kernel for key in keys)),
+                        "loss glue (everything else)")
+            split[part] += ms
+        print("training step: device busy {:.4f} ms of {:.4f} ms per step "
+              "(phase 6's CUDA events): idle share {:.2%}".format(
+                  busy, step_ms, 1 - busy / step_ms))
+        for part, ms in split.items():
+            print("  {:9.4f} ms  {:5.1%}  {}".format(ms, ms / busy, part))
+        for kernel, ms in sorted(per_kernel.items(),
+                                 key=lambda kv: -kv[1])[:12]:
+            print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
+    else:
+        print("training step: the profiler saw no device time")
 
     sources = {
         "cnn_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_fwd.cu",
@@ -745,14 +1088,59 @@ def main():
         "bilateral_packed_joint": (
             "reflectance_filtering_tpu_torch/csrc/bilateral_joint.cu",
             "reflectance_filtering_tpu/ops/bilateral_pallas.py:661"),
+        "cnn_train_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_train.cu",
+                          "reflectance_filtering_tpu/ops/"
+                          "cnn_train_pallas.py:107"),
+        "cnn_train_bwd": ("reflectance_filtering_tpu_torch/csrc/cnn_train.cu",
+                          "reflectance_filtering_tpu/ops/"
+                          "cnn_train_pallas.py:136"),
+        "whdr_scatter": ("reflectance_filtering_tpu_torch/csrc/whdr_gather.cu",
+                         "reflectance_filtering_tpu/ops/"
+                         "whdr_gather_pallas.py:80"),
     }
     # each kernel's launches in the run of its own path
     launches["box_filter"] = cli_launches["box_filter"]
     launches["guided_filter"] = gf_launches["guided_filter"]
+    for name in ("cnn_train_fwd", "cnn_train_bwd", "whdr_scatter"):
+        launches[name] = train_launches[name]
+    # each kernel's bound at the shapes timed in phase 6; float32 FMAs count
+    # 2 operations.  A bilateral tap on uint8 levels needs no expf: as in
+    # cv2.bilateralFilter its weight is a range table entry (indexed by the
+    # integer |d|, or by the sum of |d| over the joint planes) times the
+    # tap's spatial weight, so one table load, 1 multiply, an FMA per src
+    # plane and 1 add.  The float joint filter pays an expf per tap and 2 per
+    # joint plane + 2 + 2 per (src plane + 1) float32 operations.
+    taps = sum(1 for dy in range(-bf_radius, bf_radius + 1)
+               for dx in range(-bf_radius, bf_radius + 1)
+               if dy * dy + dx * dx <= bf_radius * bf_radius)
+    print("bilateral disk at r={}: {} taps".format(bf_radius, taps))
+    px, bf_px, t_px = B * H * W, BF_N * H * W, TB * H * W
+    nparams = k7.num_params(tshape)
+    bounds = {
+        "cnn_fwd": bound(flops=2 * 4352 * px, nbytes=16 * px),
+        "bilateral_gray_self": bound(flops=4 * taps * px, loads=taps * px,
+                                     nbytes=8 * px),
+        "whdr_gather": bound(nbytes=32 * B * K),
+        "box_filter": bound(nbytes=8 * px),
+        "guided_filter": bound(nbytes=20 * px),
+        "bilateral_joint": bound(flops=12 * taps * bf_px, sfu=taps * bf_px,
+                                 nbytes=20 * bf_px),
+        "bilateral_color_self": bound(flops=8 * taps * bf_px,
+                                      loads=taps * bf_px, nbytes=24 * bf_px),
+        "bilateral_packed_joint": bound(flops=4 * taps * bf_px,
+                                        loads=taps * bf_px, nbytes=20 * bf_px),
+        "cnn_train_fwd": bound(flops=2 * trunk_fmas(tshape) * t_px,
+                               nbytes=16 * t_px + 4 * nparams),
+        "cnn_train_bwd": bound(flops=2 * trunk_fmas(tshape, True) * t_px,
+                               nbytes=16 * t_px + 8 * nparams),
+        "whdr_scatter": bound(nbytes=4 * t_px + 24 * TB * K),
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name)}
         for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

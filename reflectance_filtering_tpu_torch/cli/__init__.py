@@ -1,4 +1,4 @@
-"""Command-line entry points (decompose, filter)."""
+"""Command-line entry points (decompose, filter, train)."""
 from __future__ import annotations
 
 import argparse

@@ -14,9 +14,13 @@
 // with BORDER_REFLECT_101 borders.  Input f32 [N, H, W] in 0-255 units,
 // output f32 [N, H, W].
 //
-// What bounds it on an H100: the exp per tap.  At sigma_s = 22 the disk has
-// 3,421 taps, so a pixel costs 3,421 expf calls plus ~5 FLOPs each, and
-// device memory sees only 8 bytes per pixel.  The design keeps everything
+// What bounds this kernel on an H100: the exp per tap.  At sigma_s = 22 the
+// disk has 3,409 taps, so a pixel costs 3,409 expf calls plus ~5 FLOPs each,
+// and device memory sees only 8 bytes per pixel.  The function needs less:
+// its inputs are integer levels, so the weight is a 256-entry range table
+// indexed by |x(q) - x(p)| times the tap's spatial weight, as in
+// cv2.bilateralFilter (one table load, a multiply, an FMA and an add per
+// tap); that form is a later change.  The design keeps everything
 // else off that path: one block per 16 x 32 output tile loads the tile and
 // its radius-wide halo into shared memory once (at r = 33, 82 x 98 x 4 B
 // = 32 KB), so every tap is a conflict-free shared-memory read (a warp

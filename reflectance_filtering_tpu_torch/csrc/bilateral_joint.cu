@@ -26,7 +26,7 @@
 // [N, CS, H, W].
 //
 // What bounds it on an H100: as K2, the per-tap expf and arithmetic; at
-// sigma_s = 22 a pixel walks 3,421 taps over CJ (+ CS) planes from shared
+// sigma_s = 22 a pixel walks 3,409 taps over CJ (+ CS) planes from shared
 // memory, and device memory sees each input value once per block.  One
 // block per 16 x 32 output tile holds the tile and its radius-wide halo of
 // every plane in shared memory; all threads walk the disk row by row in the
@@ -35,7 +35,9 @@
 // are stored as bytes (exact, 4x less shared memory: 24 KB for the color
 // self case at r = 33, against 94 KB as floats) and widened back with an
 // integer OR and one float subtract, off the conversion pipe.  expf, not
-// __expf, as K2.
+// __expf, as K2.  On those integer inputs the function needs no expf: the
+// range weight is a 766-entry table indexed by sum_c |delta| (cv2's form),
+// so the u8 instantiations' bound counts a table load per tap instead.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,1 +1,1 @@
-"""WHDR metric."""
+"""WHDR metric and hinge loss, boundary and Lambertian losses."""

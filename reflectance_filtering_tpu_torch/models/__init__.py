@@ -1,1 +1,1 @@
-"""Caffemodel converter and the flagship reflectance network."""
+"""Caffemodel converter, the reflectance networks and R/S recovery."""

@@ -57,6 +57,15 @@ _SIGNATURES = {
     # stream
     "rf_bilateral_joint": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                            _F, _P],
+    # y1, x1, y2, x2, g1, g2, dplane, b, h, w, k, stream
+    "rf_whdr_scatter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # n, ci, f, cout, p, out[2] (no stream: a host-side query)
+    "rf_cnn_train_plan": [_I, _I, _I, _I, _L, _P],
+    # x, w, pre, n, ci, f, cout, p, stream
+    "rf_cnn_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+    # x, g, w, grad, dx, work, n, ci, f, cout, p, blocks, stream
+    "rf_cnn_train_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                         _P],
 }
 
 _lib = None

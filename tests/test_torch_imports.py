@@ -34,11 +34,14 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["foreign"] == []
     assert not out["cuda_initialized"]
-    for name in ("cli.decompose", "cli.filter", "losses.whdr",
-                 "models.caffe_io", "models.networks", "ops._build",
-                 "ops.bilateral", "ops.bilateral_joint_kernel",
+    for name in ("cli.decompose", "cli.filter", "cli.train",
+                 "data.loader", "losses.losses", "losses.whdr",
+                 "models.caffe_io", "models.networks", "models.recover",
+                 "ops._build", "ops.bilateral", "ops.bilateral_joint_kernel",
                  "ops.bilateral_kernel", "ops.box_kernel",
-                 "ops.boxfilter", "ops.cnn_kernel", "ops.guided",
-                 "ops.guided_kernel", "ops.whdr_gather", "utils.image",
+                 "ops.boxfilter", "ops.cnn_kernel", "ops.cnn_train_kernel",
+                 "ops.guided", "ops.guided_kernel", "ops.whdr_gather",
+                 "train.checkpoint", "train.description", "train.loop",
+                 "train.monitors", "train.predict", "utils.image",
                  "utils.serving", "utils.testimages"):
         assert "reflectance_filtering_tpu_torch." + name in out["imported"]

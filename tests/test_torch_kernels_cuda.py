@@ -22,8 +22,9 @@ from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
     pack_weights, reflectance_cnn, reflectance_cnn_plain)
 from reflectance_filtering_tpu_torch.ops.guided_kernel import (
     guided_filter_fused, guided_filter_fused_plain)
+from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
 from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-    gather_pairs, gather_pairs_plain)
+    gather_pairs, gather_pairs_plain, scatter_pairs, scatter_pairs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,8 +133,17 @@ def test_gather_kernel_bitwise(dev):
     got = gather_pairs(plane, *idx)
     exp = gather_pairs_plain(plane, *idx)
     assert all(torch.equal(a, b) for a, b in zip(got, exp))
-    with pytest.raises(NotImplementedError):
-        gather_pairs(plane.requires_grad_(), *idx)
+    # a plane that requires grad: K3 forward (bitwise), K8 backward
+    leaf = plane.clone().requires_grad_()
+    before = (gather_pairs.launches, scatter_pairs.launches)
+    l1, l2 = gather_pairs(leaf, *idx)
+    assert torch.equal(l1, exp[0]) and torch.equal(l2, exp[1])
+    (l1 * 2.0 + l2).sum().backward()
+    assert (gather_pairs.launches, scatter_pairs.launches) == (
+        before[0] + 1, before[1] + 1)
+    g1 = torch.full_like(l1, 2.0)
+    want = scatter_pairs_plain(plane.shape, *idx, g1, torch.ones_like(l2))
+    assert (leaf.grad - want).abs().max().item() <= 1e-6 * want.abs().max()
 
 
 @pytest.mark.parametrize("border", ["reflect", "reflect101"])
@@ -190,3 +200,94 @@ def test_guided_kernel_refuses_bad_shapes(dev):
                             torch.zeros(70000, 1, 1, 1, device=dev), 2, 3.0)
     with pytest.raises(ValueError, match="grid limit"):
         box_filter_planar(torch.zeros(70000, 1, 1, device=dev), 2)
+
+
+# K7 configurations (n, ci, f, cout) and pixel counts: the flagship, the
+# JAX package's test configs, RS's 6-wide head, an odd 37x53 frame, the
+# widest filters and the most input/output channels fits_fused_trunk admits
+K7_CASES = [((5, 3, 32, 1), 3 * 4099), ((2, 3, 16, 1), 37 * 53),
+            ((1, 3, 32, 1), 1000), ((2, 3, 128, 1), 2 * 48 * 64),
+            ((3, 3, 16, 6), 37 * 53), ((3, 8, 256, 8), 777),
+            ((2, 5, 40, 3), 129), ((1, 1, 8, 1), 5)]
+
+
+def _k7_inputs(dev, shape, p, seed=0):
+    n, ci, f, cout = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(p, ci, device=dev, generator=g)
+    cot = torch.randn(p, cout, device=dev, generator=g)
+    flat = torch.randn(k7.num_params(shape), device=dev, generator=g) * 0.3
+    return x, cot, flat
+
+
+@pytest.mark.parametrize("shape,p", K7_CASES)
+def test_trunk_kernels_match_plain(dev, shape, p):
+    """K7 forward against the plain trunk (1e-5 relative), its backward
+    against plain autograd: each parameter gradient within 2e-4 of its
+    leaf's max (the JAX package's gate for its fused trunk), dx within
+    5e-5; two backward launches bitwise equal; input_grad=False leaves the
+    parameter gradient bitwise unchanged."""
+    x, cot, flat = _k7_inputs(dev, shape, p)
+    before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
+    pre = k7.trunk_forward(x, flat, shape)
+    exp = k7.trunk_forward_plain(x, flat, shape)
+    assert (pre - exp).abs().max().item() <= 1e-5 * exp.abs().max().item()
+    grad, dx = k7.trunk_backward(x, cot, flat, shape, True)
+    assert (k7.trunk_forward.launches, k7.trunk_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    egrad, edx = k7.trunk_backward_plain(x, cot, flat, shape, True)
+    for got, want in zip(*(k7.unpack(v, shape)[0] + k7.unpack(v, shape)[1]
+                           for v in (grad, egrad))):
+        assert (got - want).abs().max().item() <= (
+            2e-4 * want.abs().max().item() + 1e-30)
+    assert (dx - edx).abs().max().item() <= 5e-5 * edx.abs().max().item()
+    grad2, none = k7.trunk_backward(x, cot, flat, shape, False)
+    assert none is None and torch.equal(grad, grad2)
+
+
+def test_trunk_through_apply_network(dev):
+    """apply_network on a CUDA tensor sends an admitted config to K7 and
+    gives the gradients of the plain per-layer path; kernels=False takes
+    that path on the card and launches nothing."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, apply_network, init_network)
+    cfg = NetworkConfig()
+    params = init_network(cfg, torch.Generator().manual_seed(1), dev)
+    for layer in params.values():
+        for t in layer.values():
+            t.requires_grad_()
+    imgs = torch.rand(2, 40, 56, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+    before = k7.trunk_forward.launches
+    pre = apply_network(params, imgs, cfg)["RS_est_before_sigmoid"]
+    assert k7.trunk_forward.launches == before + 1
+    got = torch.autograd.grad(pre.sum(), params["conv0"]["kernel"])[0]
+    plain = k7.skip_trunk_pre_plain(params, imgs, num_layers=5)
+    want = torch.autograd.grad(plain.sum(), params["conv0"]["kernel"])[0]
+    assert (pre - plain).abs().max().item() <= 1e-5 * plain.abs().max()
+    assert (got - want).abs().max().item() <= 2e-4 * want.abs().max()
+    before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
+    off = apply_network(params, imgs, cfg, kernels=False)
+    torch.autograd.grad(off["RS_est_before_sigmoid"].sum(),
+                        params["conv0"]["kernel"])
+    assert (k7.trunk_forward.launches, k7.trunk_backward.launches) == before
+    assert (off["RS_est_before_sigmoid"] - plain).abs().max().item() <= (
+        1e-5 * plain.abs().max())
+
+
+@pytest.mark.parametrize("b,h,w,k", [(20, 256, 256, 1181), (2, 3, 3, 1500),
+                                     (3, 17, 9, 1)])
+def test_scatter_kernel_matches_index_put(dev, b, h, w, k):
+    """K8 against index_put_(accumulate=True), collisions forced by small
+    planes: within 1e-6 of the largest value, bitwise equal on a second
+    launch."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = [torch.randint(0, n, (b, k), device=dev, dtype=torch.int32,
+                         generator=g) for n in (h, w, h, w)]
+    g1, g2 = (torch.randn(b, k, device=dev, generator=g) for _ in range(2))
+    before = scatter_pairs.launches
+    got = scatter_pairs((b, h, w), *idx, g1, g2)
+    assert scatter_pairs.launches == before + 1
+    want = scatter_pairs_plain((b, h, w), *idx, g1, g2)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert torch.equal(got, scatter_pairs((b, h, w), *idx, g1, g2))
