@@ -15,7 +15,10 @@ Phases (any failure exits nonzero before the result line):
               --subsample=4 planes; the joint bilateral K6 at the JAX
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
               photo), float with a 3-plane joint), plus degenerate shapes,
-              gated;
+              gated; the iterated guided chain K9 (3 iterations, r=45,
+              eps=3) on a 2160x3840 frame, C=1, with its guide statistics
+              and one application held alone, on 2 x 480x512 with C=3, and
+              on a 12x40 frame narrower than the window;
   3t. train   the training kernels against their plain versions on the
               card: the fused skip-layer trunk K7 (forward against the plain
               trunk, backward against plain autograd) at the flagship's
@@ -28,13 +31,20 @@ Phases (any failure exits nonzero before the result line):
               eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
               the color self-guided bilateral on cuda against
               cv2.bilateralFilter at 256x256 and 512x768, c20 s22 and c30
-              s8 (<= 1 level, < 2% differing, |dWHDR| < 0.001);
+              s8 (<= 1 level, < 2% differing, |dWHDR| < 0.001); the chain
+              at 2 iterations against K5 applied twice on 1 x 480x512 and
+              1 x 512x512 (both floored, <= 1 level: the JAX bench's
+              on-chip tiling gate);
   4. serving  3 requests of 32 uint8 BGR 256x256 photos through
               utils.serving.pipeline_fn("bf") and whdr_batch, then 3 through
               pipeline_fn("gf") and whdr_batch; every launch counter is reset
               before each path and checked after it, and each result is held
               against the same pipeline through the plain versions;
-  4t. train   train.loop.fit for 20 steps of batch 20 x 256x256, K = 1181,
+  4c. chain   ops.guided.guided_filter_iterated(planar=True), the 3x chain
+              of the JAX bench's config 4, on one 2160x3840 and one
+              4320x7680 frame (C=1), counters reset before each: K9 counted,
+              K5 not; the 4K result held against the plain chain;
+  4t. train  train.loop.fit for 20 steps of batch 20 x 256x256, K = 1181,
               on a seeded synthetic set of 40 images resident on the card,
               once through the kernels (K7 forward and backward, K3, K8:
               each counted) and once through the plain versions on the card
@@ -61,17 +71,20 @@ Phases (any failure exits nonzero before the result line):
               the one PyTorch call computing the same function, where there
               is one), both slices' images/s, the MP/s of the color-self and
               BF(reflectance, photo) bilateral, and the training step's ms
-              and images/s on the kernels and on the plain versions (not
-              gated);
-  7. profile  each slice's and the training step's device busy time and
-              per-kernel device times (torch.profiler), and the idle share
-              against phase 6's time in the same run (not gated).
+              and images/s on the kernels and on the plain versions, the
+              3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
+              calls, and each K9 launch's ms (not gated);
+  7. profile  each slice's, the training step's and the 4K chain's device
+              busy time and per-kernel device times (torch.profiler), and
+              the idle share against phase 6's time in the same run (not
+              gated).
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
 the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
 K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
 color-self runs, and the direct joint_bilateral_filter_fast call; K7's
-forward and backward and K8: the 20 training steps), its measured error and
+forward and backward and K8: the 20 training steps; K9's two wrappers: the
+4K chain), its measured error and
 times, and its bound: the larger of the bytes it must move over 3.35 TB/s
 and its operations, each kind over its rate: float32 operations over 66.9
 TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), expf over the SFU's 4.18 T/s
@@ -104,6 +117,9 @@ K6_MAIN = {"bilateral_color_self": (3, 3, True, True),
            "bilateral_joint": (3, 1, False, False)}
 GF_R, GF_EPS = 45, 3.0                # GF(CNN, image): README c3 s45
 BIG_PLANE = (1, 2160, 3840)           # one 4K plane for the box kernel
+# the 3x iterated guided chain (BASELINE.json config 4, bench.py:532-575)
+CHAIN_ITERS = 3
+CHAIN_FRAMES = {"4K": (2160, 3840), "8K": (4320, 7680)}
 PROFILE_BATCHES = 5
 # the training slice: the JAX bench's training shape (bench.py:596-634)
 TB, TRAIN_N, TRAIN_VAL_N, TRAIN_STEPS = 20, 40, 20, 20
@@ -166,6 +182,47 @@ def photos(rng, n, h, w):
             out[i, c] = np.clip(0.6 * lum + 0.4 * pink_noise(rng, h, w),
                                 0, 255).astype(np.uint8)
     return out
+
+
+def device_photos(gen, n, h, w):
+    """Seeded uint8-valued float32 photos [n, 3, h, w] made on the card by
+    the recipe of :func:`photos` (1/f noise per channel with a shared
+    luminance component), so that 4K and 8K frames cost no host time."""
+    dev = gen.device
+    fy = torch.fft.fftfreq(h, device=dev)[:, None]
+    fx = torch.fft.fftfreq(w, device=dev)[None, :]
+    amp = 1.0 / torch.sqrt(fy * fy + fx * fx).clamp_min(1e-30)
+    amp[0, 0] = 1.0
+
+    def pink():
+        phase = 2 * np.pi * torch.rand((h, w), device=dev, generator=gen)
+        img = torch.fft.ifft2(torch.polar(amp, phase)).real
+        return torch.floor((img - img.min()) / (img.max() - img.min() + 1e-12)
+                           * 255.0)
+
+    out = torch.empty((n, 3, h, w), device=dev)
+    for i in range(n):
+        lum = pink()
+        for c in range(3):
+            out[i, c] = torch.floor(torch.clamp(0.6 * lum + 0.4 * pink(), 0,
+                                                255))
+    return out
+
+
+def chain_gate(got, exp):
+    """(max |d|, max uint8 levels after rint, allclose at rtol 1e-3 / atol
+    0.05): the JAX package's gate between its 3x chains
+    (tests/test_pallas_ops.py)."""
+    err = (got - exp).abs().max().item()
+    levels = (torch.round(got) - torch.round(exp)).abs().max().item()
+    return err, levels, torch.allclose(got, exp, rtol=1e-3, atol=0.05)
+
+
+def stats_gate(got, exp):
+    """The worst plane's max |d| over that plane's largest magnitude (the
+    d planes cross zero, so no relative gate per element applies)."""
+    return max(((got[:, k] - exp[:, k].to(got.dtype)).abs().max()
+                / exp[:, k].abs().max()).item() for k in range(exp.shape[1]))
 
 
 def time_ms(fn, iters, warmup=1):
@@ -329,7 +386,11 @@ def main():
     from reflectance_filtering_tpu_torch.ops.box_kernel import (
         box_filter_planar, box_filter_planar_plain)
     from reflectance_filtering_tpu_torch.ops.guided import (
-        fast_guided_filter_u8, guided_filter_u8)
+        fast_guided_filter_u8, guided_filter_iterated, guided_filter_u8)
+    from reflectance_filtering_tpu_torch.ops.guided_chain_kernel import (
+        guide_stats, guide_stats_plain, guided_apply_cached,
+        guided_apply_cached_plain, guided_filter_chain,
+        guided_filter_chain_plain)
     from reflectance_filtering_tpu_torch.ops.guided_kernel import (
         guided_filter_fused, guided_filter_fused_plain)
     from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
@@ -499,6 +560,64 @@ def main():
                   "K5 {}: <= 1 uint8 level, >= 99.9% equal".format(name))
         errs["guided_filter"] = worst
 
+        # K9: the 3x chain on the JAX bench's 4K frame (a photo guiding
+        # another photo's first plane), C=3 on two 480x512 frames, and a
+        # frame narrower than the window (reflection repeats)
+        cgen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+        frame = CHAIN_FRAMES["4K"]
+        chain_in = {
+            "1x2160x3840 C=1": (device_photos(cgen, 1, *frame),
+                                device_photos(cgen, 1, *frame)[:, :1]
+                                .contiguous()),
+            "2x480x512 C=3": (device_photos(cgen, 2, 480, 512),
+                              device_photos(cgen, 2, 480, 512)),
+            "1x12x40 C=1": tuple(torch.floor(torch.rand(
+                (1, c, 12, 40), device=dev, generator=cgen) * 256)
+                for c in (3, 1))}
+        for name, (g_in, s_in) in chain_in.items():
+            qk = guided_filter_chain(g_in, s_in, GF_R, GF_EPS, CHAIN_ITERS)
+            qp = guided_filter_chain_plain(g_in, s_in, GF_R, GF_EPS,
+                                           CHAIN_ITERS)
+            torch.cuda.synchronize()
+            err, levels, close = chain_gate(qk, qp)
+            print("K9 {} chain x{} r={} eps={}: max|d|={:.3e}, uint8 max "
+                  "{:.0f} level".format(name, CHAIN_ITERS, GF_R, GF_EPS, err,
+                                        levels))
+            check(close and levels <= 1, "K9 {}: rtol 1e-3 / atol 0.05, <= 1 "
+                  "uint8 level".format(name))
+        g4, s4 = chain_in["1x2160x3840 C=1"]
+        st_k = guide_stats(g4, GF_R, GF_EPS)
+        st_p = guide_stats_plain(g4, GF_R, GF_EPS)
+        torch.cuda.synchronize()
+        errs["guide_stats"] = (st_k - st_p).abs().max().item()
+        rel = stats_gate(st_k, st_p)
+        # the same plain version in float64: how far each float32 version
+        # is from the exact statistics of these inputs
+        st_x = guide_stats_plain(g4.double(), GF_R, GF_EPS)
+        rel_x = stats_gate(st_k, st_x)
+        print("K9 guide_stats 1x2160x3840: max|d|={:.3e}, worst plane {:.2e} "
+              "of its max; against float64: kernel {:.2e}, plain "
+              "{:.2e}".format(errs["guide_stats"], rel, rel_x,
+                              stats_gate(st_p, st_x)))
+        del st_x
+        # the plain box's float32 block partials (up to 512 x 91 x 255^2)
+        # round V's entries by ~0.01, against eps = 3 where the guide is
+        # flat: ~1e-3 of 1/eps in its d planes; the kernel's float64 sums
+        # keep it near the exact statistics
+        check(rel <= 5e-3 and rel_x <= 1e-3, "K9 guide_stats: each plane "
+              "within 5e-3 of the plain version's largest magnitude, 1e-3 "
+              "in float64")
+        # one application from the kernel's statistics, against its plain
+        # version on the same statistics
+        err, levels, close = chain_gate(
+            guided_apply_cached(st_k, g4, s4, GF_R),
+            guided_apply_cached_plain(st_k, g4, s4, GF_R))
+        errs["guided_apply_cached"] = err
+        print("K9 guided_apply_cached 1x2160x3840: max|d|={:.3e}, uint8 max "
+              "{:.0f} level".format(err, levels))
+        check(close and levels <= 1, "K9 guided_apply_cached: rtol 1e-3 / "
+              "atol 0.05, <= 1 uint8 level")
+
         # K6 at the JAX bench's shapes (bench.py:458-486): the photos by
         # themselves, BF(reflectance, photo) with the photo as the 3-plane
         # joint, and the float filter (3-plane joint, one src plane) on
@@ -605,6 +724,20 @@ def main():
                   "color-self {}x{} c{} s{} matches cv2.bilateralFilter"
                   .format(*shape, sc, ss))
 
+    print("== 3b. the chain at 2 iterations against K5 applied twice")
+    with torch.no_grad():
+        for rows in (480, 512):
+            g_in = device_photos(cgen, 1, rows, 512)
+            s_in = device_photos(cgen, 1, rows, 512)[:, :1].contiguous()
+            chained = guided_filter_chain(g_in, s_in, GF_R, GF_EPS, 2)
+            twice = guided_filter_fused(g_in, guided_filter_fused(
+                g_in, s_in, GF_R, GF_EPS), GF_R, GF_EPS)
+            d = (torch.floor(chained) - torch.floor(twice)).abs()
+            print("1x{}x512: floor levels max {:.0f}, {:.4%} differ".format(
+                rows, d.max().item(), (d > 0).float().mean().item()))
+            check(d.max().item() <= 1, "chain x2 within 1 floored level of K5 "
+                  "twice at 1x{}x512".format(rows))
+
     print("== 4. serving: 3 requests through pipeline_fn('bf') + whdr_batch")
     requests = [torch.from_numpy(photos(rng, B, H, W)).to(dev)
                 for _ in range(3)]
@@ -622,7 +755,9 @@ def main():
                 "bilateral_packed_joint": bilateral_packed_joint_batched,
                 "cnn_train_fwd": k7.trunk_forward,
                 "cnn_train_bwd": k7.trunk_backward,
-                "whdr_scatter": scatter_pairs}
+                "whdr_scatter": scatter_pairs,
+                "guide_stats": guide_stats,
+                "guided_apply_cached": guided_apply_cached}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -699,6 +834,36 @@ def main():
                       (dl == 0).float().mean().item()))
             check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
+
+    print("== 4c. the iterated chain: guided_filter_iterated(planar=True), "
+          "{} iterations".format(CHAIN_ITERS))
+    chain_data, chain_launches = {}, {}
+    with torch.no_grad():
+        for name, (fh, fw) in CHAIN_FRAMES.items():
+            g_in = device_photos(cgen, 1, fh, fw)
+            s_in = device_photos(cgen, 1, fh, fw)[:, :1].contiguous()
+            reset_launches()
+            q = guided_filter_iterated(g_in, s_in, GF_R, GF_EPS, CHAIN_ITERS,
+                                       planar=True)
+            chain_launches[name] = read_launches(
+                "{} chain".format(name),
+                ("guide_stats", "guided_apply_cached"))
+            check(chain_launches[name]["guided_filter"] == 0,
+                  "K5 not launched by the {} chain".format(name))
+            check(q.shape == (1, 1, fh, fw) and bool(torch.isfinite(q).all())
+                  and torch.unique(torch.round(q)).numel() > 20,
+                  "{} chain output [1, 1, {}, {}], finite, real work".format(
+                      name, fh, fw))
+            if name == "4K":
+                err, levels, close = chain_gate(
+                    q, guided_filter_chain_plain(g_in, s_in, GF_R, GF_EPS,
+                                                 CHAIN_ITERS))
+                print("4K chain against the plain chain on the card: "
+                      "max|d|={:.3e}, uint8 max {:.0f} level".format(err,
+                                                                    levels))
+                check(close and levels <= 1, "4K chain: rtol 1e-3 / atol "
+                      "0.05, <= 1 uint8 level against the plain chain")
+            chain_data[name] = (g_in, s_in)
 
     print("== 4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "
           "images on the card".format(TRAIN_STEPS, TB, H, W, K, TRAIN_N))
@@ -979,6 +1144,30 @@ def main():
             "whdr_scatter": time_ms(lambda: torch.zeros(
                 (TB, H, W), device=dev).index_put_((sb, sy, sx), sg,
                                                    accumulate=True), 100)}
+        # the 3x chain on K9 and as three K5 calls, each frame; K9's two
+        # launches and their plain versions on the 4K frame
+        chain_ms, k5x3_ms = {}, {}
+        for name, (g_in, s_in) in chain_data.items():
+            iters = 10 if name == "4K" else 4
+            chain_ms[name] = time_ms(lambda: guided_filter_iterated(
+                g_in, s_in, GF_R, GF_EPS, CHAIN_ITERS, planar=True), iters)
+
+            def k5_chain():
+                q = s_in
+                for _ in range(CHAIN_ITERS):
+                    q = guided_filter_fused(g_in, q, GF_R, GF_EPS)
+                return q
+            k5x3_ms[name] = time_ms(k5_chain, iters)
+        g4, s4 = chain_data["4K"]
+        st4 = guide_stats(g4, GF_R, GF_EPS)
+        times["guide_stats"] = (
+            time_ms(lambda: guide_stats(g4, GF_R, GF_EPS), 20),
+            time_ms(lambda: guide_stats_plain(g4, GF_R, GF_EPS), 3))
+        times["guided_apply_cached"] = (
+            time_ms(lambda: guided_apply_cached(st4, g4, s4, GF_R), 20),
+            time_ms(lambda: guided_apply_cached_plain(st4, g4, s4, GF_R), 3))
+        chain_plain_ms = time_ms(lambda: guided_filter_chain_plain(
+            g4, s4, GF_R, GF_EPS, CHAIN_ITERS), 2)
     # the training step as fit runs it, from the seeded flagship init on the
     # resident set's first batch; kernels, then the plain versions
     step_params = trainable(init_network(
@@ -1019,6 +1208,14 @@ def main():
           "images/s; plain {:.3f} ms = {:.1f} images/s".format(
               TB, H, W, K, step_ms, TB / step_ms * 1e3, plain_step_ms,
               TB / plain_step_ms * 1e3))
+    for name, (fh, fw) in CHAIN_FRAMES.items():
+        mp = fh * fw / 1e6
+        print("{}x chain r={} eps={}, {} 1x{}x{} C=1: K9 {:.4f} ms = {:.2f} "
+              "MP/s; three K5 calls {:.4f} ms = {:.2f} MP/s".format(
+                  CHAIN_ITERS, GF_R, GF_EPS, name, fh, fw, chain_ms[name],
+                  mp / chain_ms[name] * 1e3, k5x3_ms[name],
+                  mp / k5x3_ms[name] * 1e3))
+    print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
 
     print("== 7. profile: device time per batch (torch.profiler, {} "
           "batches each)".format(PROFILE_BATCHES))
@@ -1026,7 +1223,9 @@ def main():
         "bf": (lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]),
                slice_ms),
         "gf": (lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]),
-               gf_ms)}
+               gf_ms),
+        "4K 3x chain": (lambda: guided_filter_iterated(
+            g4, s4, GF_R, GF_EPS, CHAIN_ITERS, planar=True), chain_ms["4K"])}
     with torch.no_grad():
         for name, (run, wall_ms) in slices.items():
             busy, per_kernel = device_profile(run, PROFILE_BATCHES)
@@ -1097,12 +1296,19 @@ def main():
         "whdr_scatter": ("reflectance_filtering_tpu_torch/csrc/whdr_gather.cu",
                          "reflectance_filtering_tpu/ops/"
                          "whdr_gather_pallas.py:80"),
+        "guide_stats": ("reflectance_filtering_tpu_torch/csrc/guided_chain.cu",
+                        "reflectance_filtering_tpu/ops/guided_pallas.py:717"),
+        "guided_apply_cached": (
+            "reflectance_filtering_tpu_torch/csrc/guided_chain.cu",
+            "reflectance_filtering_tpu/ops/guided_pallas.py:648"),
     }
     # each kernel's launches in the run of its own path
     launches["box_filter"] = cli_launches["box_filter"]
     launches["guided_filter"] = gf_launches["guided_filter"]
     for name in ("cnn_train_fwd", "cnn_train_bwd", "whdr_scatter"):
         launches[name] = train_launches[name]
+    for name in ("guide_stats", "guided_apply_cached"):
+        launches[name] = chain_launches["4K"][name]
     # each kernel's bound at the shapes timed in phase 6; float32 FMAs count
     # 2 operations.  A bilateral tap on uint8 levels needs no expf: as in
     # cv2.bilateralFilter its weight is a range table entry (indexed by the
@@ -1115,6 +1321,7 @@ def main():
                if dy * dy + dx * dx <= bf_radius * bf_radius)
     print("bilateral disk at r={}: {} taps".format(bf_radius, taps))
     px, bf_px, t_px = B * H * W, BF_N * H * W, TB * H * W
+    c4_px = CHAIN_FRAMES["4K"][0] * CHAIN_FRAMES["4K"][1]
     nparams = k7.num_params(tshape)
     bounds = {
         "cnn_fwd": bound(flops=2 * 4352 * px, nbytes=16 * px),
@@ -1134,7 +1341,17 @@ def main():
         "cnn_train_bwd": bound(flops=2 * trunk_fmas(tshape, True) * t_px,
                                nbytes=16 * t_px + 8 * nparams),
         "whdr_scatter": bound(nbytes=4 * t_px + 24 * TB * K),
+        # K9 on the 4K frame, as K5 counted by its bytes alone: the guide
+        # in (12 B/px) and 9 stat planes out; an application reads the
+        # stats, the guide and one src plane and writes one plane
+        "guide_stats": bound(nbytes=(12 + 36) * c4_px),
+        "guided_apply_cached": bound(nbytes=(36 + 12 + 4 + 4) * c4_px),
     }
+    chain_bound = bound(nbytes=(12 + 4 + 4) * c4_px)
+    print("{}x chain 4K bound {:.4f} ms ({}: guide and src in, q out; K9 "
+          "{:.1%} of its rate)".format(CHAIN_ITERS, chain_bound[0],
+                                       chain_bound[1],
+                                       chain_bound[0] / chain_ms["4K"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

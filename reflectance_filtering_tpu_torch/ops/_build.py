@@ -53,6 +53,11 @@ _SIGNATURES = {
     "rf_box_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # guide, src, out, mom, ab, n, c, h, w, radius, eps, stream
     "rf_guided_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # guide, stats, mom, n, h, w, radius, eps, stream
+    "rf_guide_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # stats, guide, src, out, mom, ab, n, c, h, w, radius, stream
+    "rf_guided_apply_cached": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
     # joint, src, out, n, cj, cs, h, w, self_guided, u8, radius, gcc, gsc,
     # stream
     "rf_bilateral_joint": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -14,7 +14,10 @@ Dispatch, by the device of the tensors:
   * a gray guide runs the scalar formulas over K4 (ops/box_kernel.py) on
     CUDA and over the plain box on the CPU;
   * the Fast Guided Filter (``--subsample``) computes the coefficients at
-    1/s resolution over K4 and upsamples them.
+    1/s resolution over K4 and upsamples them;
+  * the iterated chain (``guided_filter_iterated(planar=True)``) runs K9
+    (ops/guided_chain_kernel.py) on CUDA, at any frame size, and its plain
+    version on the CPU.
 The JAX package's TPU-only predicates (fits_mxu_guided, fits_fused_guided)
 and its bf16 storage of uint8 guides do not carry over.
 """
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .box_kernel import box_filter_planar
+from .guided_chain_kernel import guided_filter_chain
 from .guided_kernel import guided_ab_means, guided_apply, guided_filter_fused
 
 
@@ -99,6 +103,32 @@ def guided_filter(guide, src, radius: int, eps,
     if not batched:
         q = q[0]
     return q[..., 0] if squeeze else q
+
+
+def guided_filter_iterated(guide, src, radius: int, eps, iterations: int = 3,
+                           planar: bool = False, guide_u8: bool = False):
+    """Guided-filter src ``iterations`` times against the same guide: the
+    Zoran-style "3x iterated GF" chain (the JAX bench's config 4).
+
+    planar=True takes and returns [N, C, H, W] (guide [N, 3, H, W]) and
+    runs :func:`guided_filter_chain`, the guide's statistics computed once
+    per call: K9 on CUDA at any frame size, its plain version on the CPU.
+    planar=False repeats :func:`guided_filter` on the HWC layouts it takes.
+    ``guide_u8`` is accepted for the JAX signature and changes nothing
+    (the JAX package's bf16 storage of uint8-valued guides is a TPU
+    device).  iterations <= 0 returns src."""
+    del guide_u8
+    if iterations <= 0:
+        return src
+    if planar:
+        return guided_filter_chain(guide.to(torch.float32).contiguous(),
+                                   src.to(torch.float32).contiguous(),
+                                   int(radius), float(eps), iterations)
+    batched = np.ndim(src) == 4
+    out = src
+    for _ in range(iterations):
+        out = guided_filter(guide, out, radius, eps, batched=batched)
+    return out
 
 
 def fast_guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int,

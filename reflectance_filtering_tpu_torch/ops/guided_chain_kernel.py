@@ -1,0 +1,148 @@
+"""K9: the iterated guided-filter chain with the guide statistics computed
+once (csrc/guided_chain.cu), its plain PyTorch versions and its wrappers.
+
+Port of reflectance_filtering_tpu/ops/guided_pallas.py::
+guided_filter_fused_iterated (the Zoran-style "3x iterated GF" of the JAX
+bench's config 4) with its kernels' calls ``_stats_call``, ``_apply_call``,
+``_stage2_call`` (the banded branch) and ``_fused_iter1_call``,
+``_fused_apply_call`` (the band-dot branch).  guide [N, 3, H, W] and src
+[N, C, H, W] float32 in guide-value units; ``iterations`` times, src <-
+the guided filter of src with the guide (BORDER_REFLECT box means, the
+cofactor solve of ops/guided_kernel.py).  What depends only on the guide,
+radius and eps is computed once per call and reused by every application
+and src channel: the 9 planes [mI0 mI1 mI2 | d00 d01 d02 d11 d12 d22],
+d = cofactor * (1 / det), as the band-dot branch stores them.  Nothing is
+cached across calls.
+
+The plain versions compute the same with the plain box (ops/boxfilter.py);
+the kernel sums its windows in float64, so the two agree to the plain
+box's float32 rounding, not bitwise.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .box_kernel import box_filter_planar_plain
+from .guided_kernel import (box_planes, by_channel_groups, check_grid,
+                            check_guided, guide_cofactors, guide_products,
+                            guided_apply)
+
+STAT_PLANES = 9
+
+
+def guide_stats_plain(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
+    """Plain version of :func:`guide_stats`: guide [N, 3, H, W] -> the 9
+    stat planes [N, 9, H, W]."""
+    m = box_planes(torch.cat([guide, guide_products(guide)], dim=1), radius,
+                   box_filter_planar_plain)
+    cof, inv_det = guide_cofactors(m[:, :3], m[:, 3:], float(eps))
+    d = torch.stack([c * inv_det for c in cof], dim=1)
+    return torch.cat([m[:, :3], d], dim=1)
+
+
+def guided_apply_cached_plain(stats: torch.Tensor, guide: torch.Tensor,
+                              src: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain version of :func:`guided_apply_cached`: one guided filter of
+    src [N, C, H, W] from the guide's cached statistics."""
+    n, c, h, w = src.shape
+    Ip = (guide[:, :, None] * src[:, None]).reshape(n, 3 * c, h, w)
+    m = box_planes(torch.cat([src, Ip], dim=1), radius,
+                   box_filter_planar_plain)
+    mean_p = m[:, :c]
+    mi = [stats[:, k:k + 1] for k in range(3)]
+    d00, d01, d02, d11, d12, d22 = (stats[:, k:k + 1] for k in range(3, 9))
+    cov0, cov1, cov2 = (m[:, c * (1 + k):c * (2 + k)] - mi[k] * mean_p
+                        for k in range(3))
+    a0 = d00 * cov0 + d01 * cov1 + d02 * cov2
+    a1 = d01 * cov0 + d11 * cov1 + d12 * cov2
+    a2 = d02 * cov0 + d12 * cov1 + d22 * cov2
+    b = mean_p - a0 * mi[0] - a1 * mi[1] - a2 * mi[2]
+    return guided_apply(box_planes(torch.cat([a0, a1, a2, b], dim=1), radius,
+                                   box_filter_planar_plain), guide)
+
+
+def guided_filter_chain_plain(guide: torch.Tensor, src: torch.Tensor,
+                              radius: int, eps,
+                              iterations: int = 3) -> torch.Tensor:
+    """Plain version of :func:`guided_filter_chain`."""
+    if iterations <= 0:
+        return src
+    stats = guide_stats_plain(guide, radius, eps)
+    for _ in range(iterations):
+        src = guided_apply_cached_plain(stats, guide, src, radius)
+    return src
+
+
+def guide_stats(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
+    """The guide's statistics for :func:`guided_apply_cached`: guide
+    [N, 3, H, W] float32 -> [N, 9, H, W] = [mI0 mI1 mI2 | d00 d01 d02 d11
+    d12 d22].  A CPU tensor runs :func:`guide_stats_plain`; a CUDA tensor
+    launches the kernel's statistics passes."""
+    check_guided(guide, radius)
+    if guide.device.type == "cpu":
+        return guide_stats_plain(guide, radius, eps)
+    _build.require_cuda(guide, "guide_stats")
+    n, _, h, w = guide.shape
+    check_grid("guide_stats", n, h, 1)
+    stats = torch.empty((n, STAT_PLANES, h, w), dtype=torch.float32,
+                        device=guide.device)
+    if stats.numel():
+        mom = torch.empty_like(stats)
+        _build.launch("rf_guide_stats", guide.device, guide.data_ptr(),
+                      stats.data_ptr(), mom.data_ptr(), n, h, w, radius,
+                      float(eps))
+        guide_stats.launches += 1
+    return stats
+
+
+def guided_apply_cached(stats: torch.Tensor, guide: torch.Tensor,
+                        src: torch.Tensor, radius: int) -> torch.Tensor:
+    """One guided filter of src [N, C, H, W] float32 with the guide's
+    statistics ``stats`` (from :func:`guide_stats` with the same guide and
+    radius) -> [N, C, H, W].  A CPU tensor runs
+    :func:`guided_apply_cached_plain`; a CUDA tensor launches the kernel's
+    application passes, src channels in groups of at most three (one
+    launch each)."""
+    check_guided(guide, radius, (("stats", stats), ("src", src)))
+    if stats.shape[1] != STAT_PLANES:
+        raise ValueError("stats must have {} planes, got {}".format(
+            STAT_PLANES, stats.shape[1]))
+    if guide.device.type == "cpu":
+        return guided_apply_cached_plain(stats, guide, src, radius)
+    _build.require_cuda(guide, "guided_apply_cached")
+    n, c, h, w = src.shape
+    group = min(c, 3)
+    check_grid("guided_apply_cached", n, h, 4 * group)
+    if not src.numel():
+        return torch.empty_like(src)
+    mom = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
+                      device=src.device)
+    ab = torch.empty_like(mom)
+
+    def launch(s, o):
+        _build.launch("rf_guided_apply_cached", src.device, stats.data_ptr(),
+                      guide.data_ptr(), s.data_ptr(), o.data_ptr(),
+                      mom.data_ptr(), ab.data_ptr(), n, s.shape[1], h, w,
+                      radius)
+        guided_apply_cached.launches += 1
+
+    return by_channel_groups(src, launch)
+
+
+def guided_filter_chain(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                        eps, iterations: int = 3) -> torch.Tensor:
+    """``iterations`` guided filters of src [N, C, H, W] with the guide
+    [N, 3, H, W] (float32), the guide's statistics computed once:
+    K9 on CUDA, the plain versions on the CPU.  iterations <= 0 returns
+    src."""
+    if iterations <= 0:
+        return src
+    stats = guide_stats(guide, radius, eps)
+    for _ in range(iterations):
+        src = guided_apply_cached(stats, guide, src, radius)
+    return src
+
+
+guide_stats.launches = 0
+guided_apply_cached.launches = 0

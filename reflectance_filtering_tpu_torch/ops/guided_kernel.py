@@ -29,31 +29,22 @@ _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 Box = Callable[[torch.Tensor, int], torch.Tensor]
 
 
-def guided_ab_means(I: torch.Tensor, p: torch.Tensor, radius: int, eps,
-                    box: Box) -> torch.Tensor:
-    """The box means of the guided filter's coefficients: I [N, 3, H, W],
-    p [N, C, H, W] -> [N, 4C, H, W] = [mean(a0) | mean(a1) | mean(a2) |
-    mean(b)], each C planes; ``box(x [B, H, W], radius)`` is the box mean
-    (the JAX package's ``_guided_filter_color_planar``, :118-175)."""
-    n, _, h, w = I.shape
-    c = p.shape[1]
+def box_planes(x: torch.Tensor, radius: int, box: Box) -> torch.Tensor:
+    """The box mean of each plane of x [N, K, H, W]."""
+    n, k, h, w = x.shape
+    return box(x.reshape(n * k, h, w).contiguous(), radius).reshape(
+        n, k, h, w)
 
-    def boxp(x):  # [N, K, H, W] -> the box mean of each plane
-        k = x.shape[1]
-        return box(x.reshape(n * k, h, w).contiguous(), radius).reshape(
-            n, k, h, w)
 
-    # one box pass over all first/second-moment planes:
-    # [I (3) | p (C) | I*p (3C) | unique I x I (6)]
-    Ip = (I[:, :, None] * p[:, None]).reshape(n, 3 * c, h, w)
-    II = torch.stack([I[:, a] * I[:, b] for a, b in _PAIRS], dim=1)
-    moments = boxp(torch.cat([I, p, Ip, II], dim=1))
-    mean_I = moments[:, 0:3]
-    mean_p = moments[:, 3:3 + c]
-    cov_Ip = moments[:, 3 + c:3 + 4 * c].reshape(n, 3, c, h, w)
-    cov_Ip = cov_Ip - mean_I[:, :, None] * mean_p[:, None]
-    m = moments[:, 3 + 4 * c:]
+def guide_products(I: torch.Tensor) -> torch.Tensor:
+    """The 6 unique products I_a I_b of the guide I [N, 3, H, W]."""
+    return torch.stack([I[:, a] * I[:, b] for a, b in _PAIRS], dim=1)
 
+
+def guide_cofactors(mean_I: torch.Tensor, m: torch.Tensor, eps):
+    """The cofactors (c00, c01, c02, c11, c12, c22) of V = mean(I I^T) -
+    mI mI^T + eps Id and 1 / det(V), from mean_I [N, 3, H, W] and the box
+    means m [N, 6, H, W] of :func:`guide_products`."""
     rr = m[:, 0] - mean_I[:, 0] * mean_I[:, 0] + eps
     rg = m[:, 1] - mean_I[:, 0] * mean_I[:, 1]
     rb = m[:, 2] - mean_I[:, 0] * mean_I[:, 2]
@@ -68,6 +59,28 @@ def guided_ab_means(I: torch.Tensor, p: torch.Tensor, radius: int, eps,
     c12 = rb * rg - rr * gb
     c22 = rr * gg - rg * rg
     inv_det = 1.0 / (rr * c00 + rg * c01 + rb * c02)
+    return (c00, c01, c02, c11, c12, c22), inv_det
+
+
+def guided_ab_means(I: torch.Tensor, p: torch.Tensor, radius: int, eps,
+                    box: Box) -> torch.Tensor:
+    """The box means of the guided filter's coefficients: I [N, 3, H, W],
+    p [N, C, H, W] -> [N, 4C, H, W] = [mean(a0) | mean(a1) | mean(a2) |
+    mean(b)], each C planes; ``box(x [B, H, W], radius)`` is the box mean
+    (the JAX package's ``_guided_filter_color_planar``, :118-175)."""
+    n, _, h, w = I.shape
+    c = p.shape[1]
+    # one box pass over all first/second-moment planes:
+    # [I (3) | p (C) | I*p (3C) | unique I x I (6)]
+    Ip = (I[:, :, None] * p[:, None]).reshape(n, 3 * c, h, w)
+    moments = box_planes(torch.cat([I, p, Ip, guide_products(I)], dim=1),
+                         radius, box)
+    mean_I = moments[:, 0:3]
+    mean_p = moments[:, 3:3 + c]
+    cov_Ip = moments[:, 3 + c:3 + 4 * c].reshape(n, 3, c, h, w)
+    cov_Ip = cov_Ip - mean_I[:, :, None] * mean_p[:, None]
+    (c00, c01, c02, c11, c12, c22), inv_det = guide_cofactors(
+        mean_I, moments[:, 3 + 4 * c:], eps)
 
     cov0, cov1, cov2 = cov_Ip[:, 0], cov_Ip[:, 1], cov_Ip[:, 2]  # [N,C,H,W]
     a0 = (c00[:, None] * cov0 + c01[:, None] * cov1 +
@@ -78,7 +91,7 @@ def guided_ab_means(I: torch.Tensor, p: torch.Tensor, radius: int, eps,
           c22[:, None] * cov2) * inv_det[:, None]
     b = mean_p - (a0 * mean_I[:, 0:1] + a1 * mean_I[:, 1:2] +
                   a2 * mean_I[:, 2:3])
-    return boxp(torch.cat([a0, a1, a2, b], dim=1))
+    return box_planes(torch.cat([a0, a1, a2, b], dim=1), radius, box)
 
 
 def guided_apply(means: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
@@ -95,6 +108,50 @@ def guided_filter_fused_plain(guide: torch.Tensor, src: torch.Tensor,
                                         box_filter_planar_plain), guide)
 
 
+def check_guided(guide: torch.Tensor, radius: int, others=()) -> None:
+    """Raise unless guide is a contiguous float32 [N, 3, H, W], each
+    (name, tensor) of ``others`` a contiguous float32 [N, C, H, W] on the
+    guide's device, and radius >= 0."""
+    _build.check_tensor(guide, "guide", torch.float32, 4)
+    n, k, h, w = guide.shape
+    if k != 3:
+        raise ValueError("guide must be [N, 3, H, W], got {}".format(
+            tuple(guide.shape)))
+    for name, t in others:
+        _build.check_tensor(t, name, torch.float32, 4)
+        if t.shape[0] != n or t.shape[2:] != guide.shape[2:]:
+            raise ValueError("{} must be [N, C, H, W] with the guide's N, H, "
+                             "W {}; got {}".format(name, (n, h, w),
+                                                   tuple(t.shape)))
+        if t.device != guide.device:
+            raise ValueError("{} and guide must share a device".format(name))
+    if radius < 0:
+        raise ValueError("radius must be >= 0, got {}".format(radius))
+
+
+def check_grid(wrapper: str, n: int, h: int, planes: int) -> None:
+    """Raise unless n images of h rows with ``planes`` planes each fit the
+    kernels' grid (n, h and n * planes at most 65,535)."""
+    if n > _GRID_LIMIT or h > _GRID_LIMIT or n * planes > _GRID_LIMIT:
+        raise ValueError("{}: {} images of {} rows with {} planes each "
+                         "exceed the kernel's grid limit of {}".format(
+                             wrapper, n, h, planes, _GRID_LIMIT))
+
+
+def by_channel_groups(src: torch.Tensor, launch) -> torch.Tensor:
+    """out [N, C, H, W] from ``launch(s, o)`` on src's channels in groups
+    of at most three (the kernels' templates take C = 1, 2 or 3)."""
+    c = src.shape[1]
+    out = torch.empty_like(src)
+    for g in range(0, c, 3):
+        s = src[:, g:g + 3].contiguous()
+        o = out if c <= 3 else torch.empty_like(s)
+        launch(s, o)
+        if c > 3:
+            out[:, g:g + 3] = o
+    return out
+
+
 def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
                         eps: float) -> torch.Tensor:
     """Guided filter with a color guide: guide [N, 3, H, W], src
@@ -103,43 +160,27 @@ def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
     A CPU tensor runs :func:`guided_filter_fused_plain`; a CUDA tensor
     launches the kernel (src channels in groups of at most three, each
     group one kernel call that recomputes the guide's statistics)."""
-    _build.check_tensor(guide, "guide", torch.float32, 4)
-    _build.check_tensor(src, "src", torch.float32, 4)
-    n, k, h, w = guide.shape
-    c = src.shape[1]
-    if k != 3 or src.shape[0] != n or src.shape[2:] != guide.shape[2:]:
-        raise ValueError("guide must be [N, 3, H, W] and src [N, C, H, W] "
-                         "with the same N, H, W; got {} and {}".format(
-                             tuple(guide.shape), tuple(src.shape)))
-    if src.device != guide.device:
-        raise ValueError("guide and src must share a device")
-    if radius < 0:
-        raise ValueError("radius must be >= 0, got {}".format(radius))
+    check_guided(guide, radius, (("src", src),))
     if guide.device.type == "cpu":
         return guided_filter_fused_plain(guide, src, radius, eps)
     _build.require_cuda(guide, "guided_filter_fused")
+    n, c, h, w = src.shape
     group = min(c, 3)
-    if n > _GRID_LIMIT or h > _GRID_LIMIT or n * 4 * group > _GRID_LIMIT:
-        raise ValueError("guided_filter_fused: {} images of {} rows with {} "
-                         "src channels exceed the kernel's grid limit of "
-                         "{}".format(n, h, c, _GRID_LIMIT))
-    out = torch.empty_like(src)
-    if not out.numel():
-        return out
+    check_grid("guided_filter_fused", n, h, 4 * group)
+    if not src.numel():
+        return torch.empty_like(src)
     mom = torch.empty((n, 9 + 4 * group, h, w), dtype=torch.float32,
                       device=src.device)
     ab = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
                      device=src.device)
-    for g in range(0, c, 3):
-        s = src[:, g:g + 3].contiguous()
-        o = out[:, g:g + 3] if c <= 3 else torch.empty_like(s)
+
+    def launch(s, o):
         _build.launch("rf_guided_filter", src.device, guide.data_ptr(),
                       s.data_ptr(), o.data_ptr(), mom.data_ptr(),
                       ab.data_ptr(), n, s.shape[1], h, w, radius, float(eps))
         guided_filter_fused.launches += 1
-        if c > 3:
-            out[:, g:g + 3] = o
-    return out
+
+    return by_channel_groups(src, launch)
 
 
 guided_filter_fused.launches = 0

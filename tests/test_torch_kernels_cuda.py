@@ -20,6 +20,8 @@ from reflectance_filtering_tpu_torch.ops.box_kernel import (
     box_filter_planar, box_filter_planar_plain)
 from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
     pack_weights, reflectance_cnn, reflectance_cnn_plain)
+from reflectance_filtering_tpu_torch.ops.guided import guided_filter_iterated
+from reflectance_filtering_tpu_torch.ops import guided_chain_kernel as k9
 from reflectance_filtering_tpu_torch.ops.guided_kernel import (
     guided_filter_fused, guided_filter_fused_plain)
 from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
@@ -189,6 +191,75 @@ def test_guided_kernel_matches_plain(dev, n, c, h, w, radius):
     d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
     assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
     assert (got - exp).abs().max().item() <= 0.05
+
+
+def _within_gate(got, exp):
+    """rtol 1e-3 / atol 0.05 in float, within 1 uint8 level after rint."""
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    return (d.max().item() <= 1
+            and torch.allclose(got, exp, rtol=1e-3, atol=0.05))
+
+
+@pytest.mark.parametrize("n,c,h,w,radius", [
+    (2, 1, 64, 96, 45), (1, 3, 41, 53, 8), (1, 1, 12, 40, 45),
+    (2, 2, 23, 31, 4), (1, 5, 37, 29, 6), (1, 1, 300, 257, 45)])
+def test_guided_chain_kernel_matches_plain(dev, n, c, h, w, radius):
+    """K9 against its plain versions on uint8-valued images: the 3x chain
+    within the float and uint8 gates, and the guide statistics alone, each
+    plane within 1e-3 of its largest magnitude (the plain box's float32
+    rounding).  (12, 40) is narrower than the window; C=5 runs each
+    application as two launches, each counted; stats once per chain."""
+    rng = np.random.RandomState(9)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, c, h, w) * 256).astype(
+        np.float32)).to(dev)
+    before = (k9.guide_stats.launches, k9.guided_apply_cached.launches)
+    got = k9.guided_filter_chain(g, s, radius, 3.0, 3)
+    assert (k9.guide_stats.launches, k9.guided_apply_cached.launches) == (
+        before[0] + 1, before[1] + 3 * -(-c // 3))
+    assert _within_gate(got, k9.guided_filter_chain_plain(g, s, radius, 3.0,
+                                                          3))
+    st = k9.guide_stats(g, radius, 3.0)
+    stp = k9.guide_stats_plain(g, radius, 3.0)
+    for k in range(k9.STAT_PLANES):
+        scale = stp[:, k].abs().max().item()
+        assert (st[:, k] - stp[:, k]).abs().max().item() <= 1e-3 * scale, k
+    # one application from the kernel's statistics
+    one = k9.guided_apply_cached(st, g, s, radius)
+    assert _within_gate(one, k9.guided_apply_cached_plain(st, g, s, radius))
+
+
+def test_guided_filter_iterated_runs_k9(dev):
+    """guided_filter_iterated(planar=True) on CUDA goes through K9 (stats
+    once, one application per iteration), never K5, and is the chain."""
+    rng = np.random.RandomState(10)
+    g = torch.from_numpy(np.floor(rng.rand(1, 3, 48, 70) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(1, 1, 48, 70) * 256).astype(
+        np.float32)).to(dev)
+    before = (k9.guide_stats.launches, k9.guided_apply_cached.launches,
+              guided_filter_fused.launches)
+    got = guided_filter_iterated(g, s, 8, 3.0, 3, planar=True)
+    assert (k9.guide_stats.launches, k9.guided_apply_cached.launches,
+            guided_filter_fused.launches) == (before[0] + 1, before[1] + 3,
+                                              before[2])
+    assert torch.equal(got, k9.guided_filter_chain(g, s, 8, 3.0, 3))
+
+
+def test_guided_chain_kernel_refuses_bad_shapes(dev):
+    g = torch.zeros(1, 3, 8, 8, device=dev)
+    st = k9.guide_stats(g, 2, 3.0)
+    with pytest.raises(ValueError):
+        k9.guided_apply_cached(st, g, torch.zeros(2, 1, 8, 8, device=dev), 2)
+    with pytest.raises(ValueError, match="share a device"):
+        k9.guided_apply_cached(st, g, torch.zeros(1, 1, 8, 8), 2)
+    with pytest.raises(ValueError, match="grid limit"):
+        k9.guide_stats(torch.zeros(1, 3, 70000, 1, device=dev), 2, 3.0)
+    big = torch.zeros(6000, 3, 1, 1, device=dev)
+    with pytest.raises(ValueError, match="grid limit"):
+        k9.guided_apply_cached(torch.zeros(6000, 9, 1, 1, device=dev), big,
+                               torch.zeros(6000, 3, 1, 1, device=dev), 2)
 
 
 def test_guided_kernel_refuses_bad_shapes(dev):
