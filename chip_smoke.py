@@ -25,7 +25,11 @@ Phases (any failure exits nonzero before the result line):
               20 x 256x256 and four other configs on a 37x53 frame, and
               the WHDR scatter-add K8 against index_put_(accumulate=True)
               with forced collisions; each backward launched twice and held
-              bitwise equal;
+              bitwise equal; K7's backward split by phase (TPU kernel 19) at
+              20 x 256x256: the full variant bitwise equal to the product
+              backward, the four with phases removed within 2e-4 of each
+              leaf's max of their plain versions, the block sum alone
+              bitwise equal to the workspace rows summed in order;
   3b. parity  the guided filter on cuda against the golden fixtures
               (tests/fixtures/guided_golden.npz), every r in {3, 45, 52} x
               eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
@@ -51,12 +55,22 @@ Phases (any failure exits nonzero before the result line):
               (no kernel counted): every step's loss_total within 1e-3
               relative; then 10 steps, a checkpoint, a resume for 10 more,
               against the 20 uninterrupted steps (params within 1e-6);
+  4n. nets    the seven networkTypes (batch norm on and off for the
+              skip-layer trunk and the cascade; the train CLI's default
+              widths) through train.loop.compute_losses at batch 4 x 64x64
+              (uNet's global path at its fixed 256x256), kernels on and off
+              on the card: loss within 1e-3 relative, every gradient within
+              2e-4 of its leaf's max; K7 counted on the skip trunk (1
+              forward, 1 backward) and the cascade (2 and 2, one backward
+              with the input cotangent); then one training step each;
   5. CLIs     the train CLI's fit stage on cuda with the flagship flags
               (--iterations=40 --batch_size=20 --checkpoint_interval=20) on
               a synthetic 256x256 .npz tree, warm-started from a seeded
               .npz, its results tree checked, and the same run with
               --device cpu: final val WHDR within 0.001, final params within
-              1e-3;
+              1e-3; then the same with the CLI's default network flags
+              (convStaticWithSigmoid, 2 layers of 16 3x3 filters, rRelMax)
+              on the same set;
               the decompose and filter CLIs' functions on a synthetic PNG
               on cuda (seeded weights: the trained model is not shipped):
               bilateral c20 s22 on the -r.png by itself, on the -r.png
@@ -73,18 +87,25 @@ Phases (any failure exits nonzero before the result line):
               BF(reflectance, photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
-              calls, and each K9 launch's ms (not gated);
+              calls, each K9 launch's ms, and K7's backward split by phase
+              (reflectance_filtering_tpu_torch/scripts/
+              measure_train_bwd_split.py: each variant's median ms, each
+              phase's delta beside its bound, the product backward's time
+              and each instantiation's registers) (not gated);
   7. profile  each slice's, the training step's and the 4K chain's device
               busy time and per-kernel device times (torch.profiler), and
               the idle share against phase 6's time in the same run (not
               gated).
+
+Each phase's header shows the seconds since the script started; the line
+before the kernels line, the whole run's.
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
 the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
 K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
 color-self runs, and the direct joint_bilateral_filter_fast call; K7's
 forward and backward and K8: the 20 training steps; K9's two wrappers: the
-4K chain), its measured error and
+4K chain; K7's split: its run in phase 6), its measured error and
 times, and its bound: the larger of the bytes it must move over 3.35 TB/s
 and its operations, each kind over its rate: float32 operations over 66.9
 TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), expf over the SFU's 4.18 T/s
@@ -128,41 +149,53 @@ TRAIN_FLAGS = ["--networkType=convStaticSkipLayers", "--numLayers=5",
                "--RS_est_mode=rDirectly"]
 # K7 off the flagship: (n, ci, f, cout) on a 37x53 frame
 K7_OTHER = [(2, 3, 16, 1), (1, 3, 32, 1), (2, 3, 128, 1), (3, 3, 16, 6)]
-# the card's peak rates for the bounds (H100 SXM)
-HBM_BYTES_S = 3.35e12
-F32_FLOP_S = 132 * 128 * 2 * 1.98e9       # 66.9 TFLOP/s, FMA = 2
+# phase 4n: (networkType, batch norm) at batch NET_B of NET_HW x NET_HW
+NET_B, NET_HW = 4, 64
+NET_CASES = ([(t, False) for t in ("convStatic", "convStaticWithSigmoid",
+                                   "simpleConvolutionsRelu", "convIncreasing",
+                                   "uNet")]
+             + [(t, bn) for t in ("convStaticSkipLayers", "cascadeSkipLayers")
+                for bn in (False, True)])
+# the card's peak rates for the bounds (H100 SXM); the float32 and memory
+# rates are the split script's (F32_FLOP_S, HBM_BYTES_S)
 SFU_S = 132 * 16 * 1.98e9                 # 4.18 T expf/s
 SMEM_LOADS_S = 132 * 32 * 1.98e9          # 8.36 T shared-memory loads/s
 
 
 def bound(flops=0.0, sfu=0.0, loads=0.0, nbytes=0.0):
     """(least ms the card could take, "operations" or "bytes")."""
+    from reflectance_filtering_tpu_torch.scripts.measure_train_bwd_split \
+        import F32_FLOP_S, HBM_BYTES_S
     ops = max(flops / F32_FLOP_S, sfu / SFU_S, loads / SMEM_LOADS_S)
     mem = nbytes / HBM_BYTES_S
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
-def trunk_fmas(shape, backward=False, input_grad=False):
-    """FMAs per pixel of K7 (forward; backward: rematerialisation, the fuse
-    head, the chain and the weight gradients)."""
+def trunk_fmas(shape):
+    """FMAs per pixel of K7's forward (the backward's are the split
+    script's phase_fmas)."""
     n, ci, f, cout = shape
-    fwd = ci * f + (n - 1) * f * f + n * f * cout
-    if not backward:
-        return fwd
-    return (fwd + 2 * n * f * cout + (n - 1) * f * f + ci * f
-            + (n - 1) * f * f + (ci * f if input_grad else 0))
+    return ci * f + (n - 1) * f * f + n * f * cout
 
 
-def training_set(seed, n, k):
+def training_set(seed, n, k, h=H, w=W):
     """A seeded synthetic training set in the loader's NHWC layout: 1/f
     photos as linear RGB in [0, 1], and K synthetic comparisons each."""
     from reflectance_filtering_tpu_torch.utils.image import srgb_to_rgb
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
-    bgr = photos(np.random.RandomState(seed), n, H, W)
+    bgr = photos(np.random.RandomState(seed), n, h, w)
     rgb = np.ascontiguousarray(bgr[:, ::-1].transpose(0, 2, 3, 1)) / 255.0
     return {"images": srgb_to_rgb(rgb).astype(np.float32),
             "comparisons": make_synthetic_comps(seed + 1, k, batch=n)}
+
+
+_START = time.perf_counter()
+
+
+def phase(title):
+    """Print a phase's header with the seconds since the script started."""
+    print("== {} ({:.1f} s)".format(title, time.perf_counter() - _START))
 
 
 def check(ok, msg):
@@ -334,6 +367,34 @@ def check_training_kernels(dev, seed):
             errs["cnn_train_bwd"] = (grad - grad_p).abs().max().item()
             keep = {"x": x, "g": g, "flat": flat, "shape": shape}
 
+    # kernel 19: the backward's timing variants at the flagship's shapes
+    x, g, flat, shape = (keep[key] for key in ("x", "g", "flat", "shape"))
+    work = k7.backward_workspace(x, shape)
+    product, _ = k7.trunk_backward(x, g, flat, shape, False)
+    worst = 0.0
+    for variant, name in enumerate(k7.BWD_VARIANTS[:5]):
+        got = k7.trunk_backward_variant(x, g, flat, shape, variant, work)
+        want = k7.trunk_backward_variant_plain(x, g, flat, shape, variant)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        leaf_rel = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for part in (0, 1) for a, b in zip(k7.unpack(got, shape)[part],
+                                               k7.unpack(want, shape)[part]))
+        print("K7 split {} ({}): max|d|={:.3e}, worst leaf {:.2e} of its "
+              "max".format(variant, name, err, leaf_rel))
+        if variant == 0:
+            check(torch.equal(got, product), "K7 split: the full variant "
+                  "bitwise equal to the product backward")
+        check(leaf_rel <= 2e-4, "K7 split {}: each leaf within 2e-4 of its "
+              "max of the plain version".format(name))
+    summed = k7.trunk_backward_variant(x, g, flat, shape, 5, work)
+    check(torch.equal(summed, k7.block_sum_plain(work, shape))
+          and torch.equal(summed, got), "K7 split: the block sum alone "
+          "bitwise equal to the workspace rows summed in block order")
+    errs["cnn_train_bwd_split"] = worst
+
     # K8 at the training step's shapes, half of the points inside a 12x12
     # corner so that many pixels are read by several points
     b, k = TB, K
@@ -358,6 +419,88 @@ def check_training_kernels(dev, seed):
     errs["whdr_scatter"] = err
     keep["scatter"] = (idx, g1, g2)
     return errs, keep
+
+
+def check_network_families(dev, seed):
+    """Phase 4n: each of NET_CASES through compute_losses on the card, with
+    the kernels and with the plain versions (kernels=False): the loss
+    within 1e-3 relative and every gradient within 2e-4 of its leaf's max;
+    K7's launches counted on the skip-layer trunk and the cascade, and
+    which of its backwards computed the input cotangent; then one training
+    step of each."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    from reflectance_filtering_tpu_torch.train.loop import (
+        LossConfig, compute_losses, make_optimizer, make_train_step,
+        trainable)
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(NET_B, NET_HW, NET_HW, 3, device=dev,
+                        generator=gen) * 0.8 + 0.1
+    comps = torch.from_numpy(make_synthetic_comps(seed, K,
+                                                  batch=NET_B)).to(dev)
+    for kind, bn in NET_CASES:
+        skip = kind in ("convStaticSkipLayers", "cascadeSkipLayers")
+        cfg = NetworkConfig(network_type=kind, num_layers=2,
+                            num_filters_log=4, kernel_pad=0 if skip else 1,
+                            use_batch_normalization=bn, rs_est_mode="rRelMax")
+        init = init_network(cfg, torch.Generator().manual_seed(seed), dev)
+        name = "{} bn{}".format(kind, int(bn))
+        runs = {}
+        for kernels in (True, False):
+            params = trainable(init, dev)
+            leaves = [t for layer in params.values() for t in layer.values()]
+            counters = (k7.trunk_forward.launches, k7.trunk_backward.launches,
+                        k7.trunk_backward.dx_launches)
+            total, _ = compute_losses(params, images, comps, cfg,
+                                      LossConfig(), kernels=kernels)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+            runs[kernels] = (total.item(), grads, (
+                k7.trunk_forward.launches - counters[0],
+                k7.trunk_backward.launches - counters[1]),
+                k7.trunk_backward.dx_launches - counters[2])
+        (loss_k, grads_k, k7_k, dx_k), (loss_p, grads_p, k7_p, _) = (
+            runs[True], runs[False])
+        names = [(layer, part) for layer in init for part in init[layer]]
+        scale = max(g_.abs().max().item() for g_ in grads_p if g_ is not None)
+        worst, noise, unused = 0.0, 0.0, True
+        for (layer, part), a, b in zip(names, grads_k, grads_p):
+            if b is None:           # batch norm's running statistics
+                unused = unused and a is None
+            elif part == "bias" and "bn" + layer[4:] in init:
+                # the bias of a conv before batch norm: a zero gradient
+                noise = max(noise, a.abs().max().item(),
+                            b.abs().max().item())
+            else:
+                worst = max(worst, ((a - b).abs().max()
+                                    / b.abs().max().clamp_min(1e-30)).item())
+        want = ((1, 1) if kind == "convStaticSkipLayers" and not bn
+                else (2, 2) if kind == "cascadeSkipLayers" and not bn
+                else (0, 0))
+        print("4n {}: loss kernels {:.6f} plain {:.6f}; worst leaf {:.2e} of "
+              "its max; K7 forward/backward {} (with dx: {})".format(
+                  name, loss_k, loss_p, worst, k7_k, dx_k))
+        check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p) and worst <= 2e-4
+              and noise <= 1e-5 * scale and unused, "4n {}: loss within 1e-3 "
+              "relative, gradients within 2e-4 of each leaf's max".format(
+                  name))
+        check(k7_k == want and k7_p == (0, 0)
+              and dx_k == (1 if want == (2, 2) else 0),
+              "4n {}: K7 launched {} times each way, {} backward with the "
+              "input cotangent (none with kernels=False)".format(
+                  name, want[0], 1 if want == (2, 2) else 0))
+        params = trainable(init, dev)
+        step = make_train_step(cfg, LossConfig(), params,
+                               make_optimizer("ADAM", 1e-3, params))
+        loss = step(images, comps)["loss_total"].item()
+        bn_moved = all(params[layer]["mean"].abs().max().item() > 0
+                       for layer in params if layer.startswith("bn"))
+        check(np.isfinite(loss) and bn_moved, "4n {}: one training step "
+              "(loss {:.6f}{})".format(name, loss, ", running means folded"
+                                       if bn else ""))
 
 
 def main():
@@ -410,9 +553,11 @@ def main():
         LossConfig, fit, make_optimizer, make_train_step, trainable)
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
+    from reflectance_filtering_tpu_torch.scripts import (
+        measure_train_bwd_split as split)
     dev = torch.device("cuda", 0)
 
-    print("== 1. device")
+    phase("1. device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -423,7 +568,7 @@ def main():
           "| allow_tf32 matmul", torch.backends.cuda.matmul.allow_tf32,
           "cudnn", torch.backends.cudnn.allow_tf32)
 
-    print("== 2. build")
+    phase("2. build")
     t0 = time.perf_counter()
     _build.lib()
     print("kernel library ready in {:.2f} s (nvcc: {})".format(
@@ -436,7 +581,7 @@ def main():
                     or "spill" in line):
                 print("  ptxas:", line.strip())
 
-    print("== 3. kernels vs plain on the card")
+    phase("3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
     grng = np.random.RandomState(args.seed + 1)   # the gf slice's inputs
     brng = np.random.RandomState(args.seed + 2)   # K6's inputs
@@ -676,11 +821,11 @@ def main():
                       "K6 {} {}: <= 1 uint8 level, >= 99.9% equal".format(
                           name, shape))
 
-    print("== 3t. training kernels vs plain on the card")
+    phase("3t. training kernels vs plain on the card")
     train_errs, train_in = check_training_kernels(dev, args.seed)
     errs.update(train_errs)
 
-    print("== 3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
+    phase("3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "fixtures", "guided_golden.npz")
     with np.load(fixture) as z:
@@ -703,7 +848,7 @@ def main():
                   "guided {} within 1 uint8 level of the fixtures {}".format(
                       tag, worst))
 
-    print("== 3b. color self-guided bilateral on cuda vs cv2.bilateralFilter")
+    phase("3b. color self-guided bilateral on cuda vs cv2.bilateralFilter")
     import cv2
     judg = torch.from_numpy(make_synthetic_comps(args.seed, K))
     for shape in ((256, 256), (512, 768)):
@@ -724,7 +869,7 @@ def main():
                   "color-self {}x{} c{} s{} matches cv2.bilateralFilter"
                   .format(*shape, sc, ss))
 
-    print("== 3b. the chain at 2 iterations against K5 applied twice")
+    phase("3b. the chain at 2 iterations against K5 applied twice")
     with torch.no_grad():
         for rows in (480, 512):
             g_in = device_photos(cgen, 1, rows, 512)
@@ -738,7 +883,7 @@ def main():
             check(d.max().item() <= 1, "chain x2 within 1 floored level of K5 "
                   "twice at 1x{}x512".format(rows))
 
-    print("== 4. serving: 3 requests through pipeline_fn('bf') + whdr_batch")
+    phase("4. serving: 3 requests through pipeline_fn('bf') + whdr_batch")
     requests = [torch.from_numpy(photos(rng, B, H, W)).to(dev)
                 for _ in range(3)]
     comps = [torch.from_numpy(make_synthetic_comps(args.seed + i, K,
@@ -757,7 +902,8 @@ def main():
                 "cnn_train_bwd": k7.trunk_backward,
                 "whdr_scatter": scatter_pairs,
                 "guide_stats": guide_stats,
-                "guided_apply_cached": guided_apply_cached}
+                "guided_apply_cached": guided_apply_cached,
+                "cnn_train_bwd_split": k7.trunk_backward_variant}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -801,7 +947,7 @@ def main():
             check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
 
-    print("== 4. serving: 3 requests through pipeline_fn('gf') + whdr_batch")
+    phase("4. serving: 3 requests through pipeline_fn('gf') + whdr_batch")
     gf_requests = [torch.from_numpy(photos(grng, B, H, W)).to(dev)
                    for _ in range(3)]
     gf = pipeline_fn("gf", net, dev)
@@ -835,7 +981,7 @@ def main():
             check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
 
-    print("== 4c. the iterated chain: guided_filter_iterated(planar=True), "
+    phase("4c. the iterated chain: guided_filter_iterated(planar=True), "
           "{} iterations".format(CHAIN_ITERS))
     chain_data, chain_launches = {}, {}
     with torch.no_grad():
@@ -865,7 +1011,7 @@ def main():
                       "0.05, <= 1 uint8 level against the plain chain")
             chain_data[name] = (g_in, s_in)
 
-    print("== 4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "
+    phase("4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "
           "images on the card".format(TRAIN_STEPS, TB, H, W, K, TRAIN_N))
     train_data = training_set(args.seed + 7, TRAIN_N, K)
     flagship = NetworkConfig()
@@ -914,7 +1060,11 @@ def main():
     check(resumed.samples == state_k.samples and diff <= 1e-6,
           "10 steps + checkpoint + resume to 20 equals 20 steps (1e-6)")
 
-    print("== 5. the train CLI's fit stage on cuda and on the CPU")
+    phase("4n. the network families: compute_losses at batch {} x {}x{}, "
+          "kernels on and off".format(NET_B, NET_HW, NET_HW))
+    check_network_families(dev, args.seed)
+
+    phase("5. the train CLI's fit stage on cuda and on the CPU")
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "lmdbs")
         os.makedirs(os.path.join(root, "iiw"))
@@ -925,47 +1075,68 @@ def main():
             np.savez(os.path.join(root, "iiw", "{}_{}_{}_linear.npz".format(
                 stem, H, W)), images=data["images"].transpose(0, 3, 1, 2),
                 comparisons=data["comparisons"][:, :, None, :])
-        warm = os.path.join(tmp, "warm.npz")
-        save_checkpoint(warm, init_network(
-            flagship, torch.Generator().manual_seed(args.seed)))
-        cli_args = ["--stage=fit"] + TRAIN_FLAGS + [
-            "--iterations=40", "--batch_size={}".format(TB),
-            "--checkpoint_interval=20", "--height={}".format(H),
-            "--width={}".format(W), "--random_seed=0",
-            "--predictCaffemodel", warm, "--data_root", root,
-            "--experiment=smoke"]
-        cli_out = {}
-        for device in ("cuda", "cpu"):
-            out = os.path.join(tmp, device)
-            reset_launches()
-            train_cli.main(cli_args + ["--results_root", out,
-                                       "--device", device])
-            if device == "cuda":
-                read_launches("train CLI on cuda", train_kernels)
-            exp = os.path.join(out, "smoke")
-            snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
-            check([s.rsplit("_", 1)[1] for s in snaps] == ["20.npz", "40.npz"],
-                  "{}: snapshots _iter_20 and _iter_40".format(device))
-            progs = os.listdir(os.path.join(exp, "progressions"))
-            check(len(progs) == 1 and os.listdir(os.path.join(exp, "scores"))
-                  and os.listdir(os.path.join(exp, "framerates")),
-                  "{}: progressions/*.json, scores/, framerates/".format(
-                      device))
-            with open(os.path.join(exp, "progressions", progs[0])) as f:
-                prog = json.load(f)["test"]
-            cli_out[device] = (prog, load_checkpoint(os.path.join(
-                exp, "snapshots", snaps[-1]))[0])
-        (prog_c, par_c), (prog_p, par_p) = cli_out["cuda"], cli_out["cpu"]
-        dw = abs(prog_c[-1]["WHDR"] - prog_p[-1]["WHDR"]) / 100.0
-        dp = max(np.abs(par_c[layer][part] - par_p[layer][part]).max()
-                 for layer in par_p for part in par_p[layer])
-        print("train CLI val WHDR cuda {} cpu {}: |d|={:.2e}; final params "
-              "max|d|={:.3e}".format([e["WHDR"] for e in prog_c],
-                                     [e["WHDR"] for e in prog_p], dw, dp))
-        check(dw <= 1e-3 and dp <= 1e-3, "train CLI on cuda against the CPU: "
-              "final val WHDR within 0.001, params within 1e-3")
+        # the flagship's flags, then the CLI's default network flags
+        # (convStaticWithSigmoid, 2 layers of 16 3x3 filters, rRelMax: no
+        # K7), each from a seeded warm start of its config
+        default_cfg = train_cli.net_config_from_args(
+            train_cli.build_parser().parse_args([]))
+        runs = [("flagship flags", TRAIN_FLAGS, flagship, train_kernels),
+                ("default flags", [], default_cfg,
+                 ("whdr_gather", "whdr_scatter"))]
+        for run, flags, cfg, kernel_names in runs:
+            print("train CLI, {}: {}".format(run, cfg))
+            warm = os.path.join(tmp, "warm.npz")
+            save_checkpoint(warm, init_network(
+                cfg, torch.Generator().manual_seed(args.seed)))
+            cli_args = ["--stage=fit"] + flags + [
+                "--iterations=40", "--batch_size={}".format(TB),
+                "--checkpoint_interval=20", "--height={}".format(H),
+                "--width={}".format(W), "--random_seed=0",
+                "--predictCaffemodel", warm, "--data_root", root,
+                "--experiment=smoke"]
+            cli_out = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, run.split()[0], device)
+                reset_launches()
+                t0 = time.perf_counter()
+                train_cli.main(cli_args + ["--results_root", out,
+                                           "--device", device])
+                print("train CLI, {}, on {}: {:.2f} s".format(
+                    run, device, time.perf_counter() - t0))
+                if device == "cuda":
+                    read_launches("train CLI on cuda, " + run, kernel_names)
+                exp = os.path.join(out, "smoke")
+                snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
+                check([s_.rsplit("_", 1)[1] for s_ in snaps]
+                      == ["20.npz", "40.npz"] and all(
+                          s_.startswith(cfg.network_type + "_")
+                          for s_ in snaps),
+                      "{}, {}: {} snapshots _iter_20 and _iter_40".format(
+                          run, device, cfg.network_type))
+                progs = os.listdir(os.path.join(exp, "progressions"))
+                check(len(progs) == 1
+                      and os.listdir(os.path.join(exp, "scores"))
+                      and os.listdir(os.path.join(exp, "framerates")),
+                      "{}, {}: progressions/*.json, scores/, "
+                      "framerates/".format(run, device))
+                with open(os.path.join(exp, "progressions", progs[0])) as f:
+                    prog = json.load(f)["test"]
+                cli_out[device] = (prog, load_checkpoint(os.path.join(
+                    exp, "snapshots", snaps[-1]))[0])
+            (prog_c, par_c), (prog_p, par_p) = (cli_out["cuda"],
+                                                cli_out["cpu"])
+            dw = abs(prog_c[-1]["WHDR"] - prog_p[-1]["WHDR"]) / 100.0
+            dp = max(np.abs(par_c[layer][part] - par_p[layer][part]).max()
+                     for layer in par_p for part in par_p[layer])
+            print("train CLI, {}: val WHDR cuda {} cpu {}: |d|={:.2e}; final "
+                  "params max|d|={:.3e}".format(
+                      run, [e["WHDR"] for e in prog_c],
+                      [e["WHDR"] for e in prog_p], dw, dp))
+            check(dw <= 1e-3 and dp <= 1e-3, "train CLI, {}, on cuda against "
+                  "the CPU: final val WHDR within 0.001, params within "
+                  "1e-3".format(run))
 
-    print("== 5. CLIs on cuda")
+    phase("5. CLIs on cuda")
     with tempfile.TemporaryDirectory() as tmp:
         photo = np.moveaxis(photos(rng, 1, H, W)[0], 0, -1)
         png = os.path.join(tmp, "smoke.png")
@@ -1062,7 +1233,7 @@ def main():
               "joint_bilateral_filter_fast on cuda within 1e-3 of the CPU "
               "(max {:.2e})".format(err))
 
-    print("== 6. times (CUDA events; inputs resident on the card)")
+    phase("6. times (CUDA events; inputs resident on the card)")
     times = {}
     with torch.no_grad():
         times["cnn_fwd"] = (
@@ -1217,7 +1388,23 @@ def main():
                   mp / k5x3_ms[name] * 1e3))
     print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
 
-    print("== 7. profile: device time per batch (torch.profiler, {} "
+    phase("6. K7's backward split by phase (TPU kernel 19), inputs made "
+          "with numpy from --seed")
+    sx, sg, sflat = split.make_inputs(dev, args.seed)
+    reset_launches()
+    split_run = split.measure(sx, sg, sflat)
+    split_launches = read_launches("K7 backward split", (
+        "cnn_train_bwd_split",))
+    split.print_table(split_run, registers=split.register_report())
+    times["cnn_train_bwd_split"] = (
+        split_run["ms"]["full"],
+        time_ms(lambda: k7.trunk_backward_variant_plain(
+            sx, sg, sflat, split.SHAPE, 0), 5))
+    print("K7 backward in the times above: {:.4f} ms; in the split's turns: "
+          "{:.4f} ms".format(times["cnn_train_bwd"][0],
+                             split_run["product_ms"]))
+
+    phase("7. profile: device time per batch (torch.profiler, {} "
           "batches each)".format(PROFILE_BATCHES))
     slices = {
         "bf": (lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]),
@@ -1247,17 +1434,17 @@ def main():
                  "K3 gather": ("whdr_gather_kernel",),
                  "K8 scatter + its memset": ("whdr_scatter", "Memset"),
                  "Adam": ("multi_tensor_apply", "adam", "Adam")}
-        split = {part: 0.0 for part in parts}
-        split["loss glue (everything else)"] = 0.0
+        part_ms = {part: 0.0 for part in parts}
+        part_ms["loss glue (everything else)"] = 0.0
         for kernel, ms in per_kernel.items():
             part = next((p_ for p_, keys in parts.items()
                          if any(key in kernel for key in keys)),
                         "loss glue (everything else)")
-            split[part] += ms
+            part_ms[part] += ms
         print("training step: device busy {:.4f} ms of {:.4f} ms per step "
               "(phase 6's CUDA events): idle share {:.2%}".format(
                   busy, step_ms, 1 - busy / step_ms))
-        for part, ms in split.items():
+        for part, ms in part_ms.items():
             print("  {:9.4f} ms  {:5.1%}  {}".format(ms, ms / busy, part))
         for kernel, ms in sorted(per_kernel.items(),
                                  key=lambda kv: -kv[1])[:12]:
@@ -1301,6 +1488,9 @@ def main():
         "guided_apply_cached": (
             "reflectance_filtering_tpu_torch/csrc/guided_chain.cu",
             "reflectance_filtering_tpu/ops/guided_pallas.py:648"),
+        "cnn_train_bwd_split": (
+            "reflectance_filtering_tpu_torch/csrc/cnn_train.cu",
+            "scripts/measure_train_bwd_split.py:128"),
     }
     # each kernel's launches in the run of its own path
     launches["box_filter"] = cli_launches["box_filter"]
@@ -1309,6 +1499,7 @@ def main():
         launches[name] = train_launches[name]
     for name in ("guide_stats", "guided_apply_cached"):
         launches[name] = chain_launches["4K"][name]
+    launches["cnn_train_bwd_split"] = split_launches["cnn_train_bwd_split"]
     # each kernel's bound at the shapes timed in phase 6; float32 FMAs count
     # 2 operations.  A bilateral tap on uint8 levels needs no expf: as in
     # cv2.bilateralFilter its weight is a range table entry (indexed by the
@@ -1321,6 +1512,8 @@ def main():
                if dy * dy + dx * dx <= bf_radius * bf_radius)
     print("bilateral disk at r={}: {} taps".format(bf_radius, taps))
     px, bf_px, t_px = B * H * W, BF_N * H * W, TB * H * W
+    check(tshape == split.SHAPE and t_px == split.PIXELS, "the training "
+          "kernels were timed at the split's shapes")
     c4_px = CHAIN_FRAMES["4K"][0] * CHAIN_FRAMES["4K"][1]
     nparams = k7.num_params(tshape)
     bounds = {
@@ -1338,8 +1531,10 @@ def main():
                                         loads=taps * bf_px, nbytes=20 * bf_px),
         "cnn_train_fwd": bound(flops=2 * trunk_fmas(tshape) * t_px,
                                nbytes=16 * t_px + 4 * nparams),
-        "cnn_train_bwd": bound(flops=2 * trunk_fmas(tshape, True) * t_px,
-                               nbytes=16 * t_px + 8 * nparams),
+        # the backward's FMAs per pixel: the split's phases summed
+        "cnn_train_bwd": bound(
+            flops=2 * sum(split.phase_fmas().values()) * t_px,
+            nbytes=16 * t_px + 8 * nparams),
         "whdr_scatter": bound(nbytes=4 * t_px + 24 * TB * K),
         # K9 on the 4K frame, as K5 counted by its bytes alone: the guide
         # in (12 B/px) and 9 stat planes out; an application reads the
@@ -1347,11 +1542,14 @@ def main():
         "guide_stats": bound(nbytes=(12 + 36) * c4_px),
         "guided_apply_cached": bound(nbytes=(36 + 12 + 4 + 4) * c4_px),
     }
+    # the split's full variant is the product backward: row 18's bound
+    bounds["cnn_train_bwd_split"] = bounds["cnn_train_bwd"]
     chain_bound = bound(nbytes=(12 + 4 + 4) * c4_px)
     print("{}x chain 4K bound {:.4f} ms ({}: guide and src in, q out; K9 "
           "{:.1%} of its rate)".format(CHAIN_ITERS, chain_bound[0],
                                        chain_bound[1],
                                        chain_bound[0] / chain_ms["4K"]))
+    print("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -48,6 +48,13 @@
 // Plain f32 FMAs: the TPU kernel's bf16x3 splits existed only for its matrix
 // unit.  Any configuration that fits_fused_trunk admits launches: n >= 1,
 // ci <= 8, f a multiple of 8 in 8..256, cout <= 8.
+//
+// The backward is a template over a mask of its phases.  The product runs
+// every phase; rf_cnn_train_bwd_variant runs the timing variants of
+// scripts/measure_train_bwd_split.py::_bwd_variant (TPU kernel 19), each
+// with phases removed in dependency order, at the product's block count and
+// shared-memory layout, so that the differences of their times split the
+// product's time by phase.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +66,16 @@ constexpr int kStride = kTile + 4;    // row stride of a tile array, floats
 constexpr int kQuarter = 4;           // dW pixel split (kTile / 16)
 constexpr int kBudget = 100 * 1024;   // shared-memory budget of one block
                                       // of the backward (two per SM)
+
+// Phases of the backward, bits of its template mask.  Without kRemat a tile
+// is loaded and only its first x and g values are summed into db_fuse (the
+// floor: the per-tile loop, the loads and the block sum); with it the tile
+// is rematerialised and db_l, db_fuse and the masked chain dz_l are formed.
+constexpr int kRemat = 1;
+constexpr int kHead = 2;         // dW_fuse = sum_p h_l g
+constexpr int kChain = 4;        // the chain's W_{l+1} dz_{l+1} term
+constexpr int kWeightGrad = 8;   // dW_l = sum_p a_{l-1} dz_l
+constexpr int kAllPhases = kRemat | kHead | kChain | kWeightGrad;
 
 struct Shape {
   int n, ci, f, cout;
@@ -289,6 +306,7 @@ __device__ void row_sums(int rows, const float* v, float* acc, int64_t off) {
   }
 }
 
+template <int kMask>
 __global__ void __launch_bounds__(kThreads, 2)
 trunk_bwd_kernel(Shape s, Plan plan, const float* __restrict__ x,
                  const float* __restrict__ g, const float* __restrict__ w,
@@ -315,23 +333,31 @@ trunk_bwd_kernel(Shape s, Plan plan, const float* __restrict__ x,
     load_tile(s, p0, x, s.ci, s.ci4, xs);
     load_tile(s, p0, g, s.cout, s.cout, gs);
     __syncthreads();
+    const int64_t offbf = offf + static_cast<int64_t>(s.n) * s.f * s.cout;
+    if constexpr ((kMask & kRemat) == 0) {
+      // the floor: touch the tile's first x and g, nothing else
+      if (threadIdx.x < s.cout) acc[offbf + threadIdx.x] += xs[0] + gs[0];
+      continue;
+    }
     remat(s, w, xs, act);
 
     // fuse head: dbf[c] = sum_p g[c][p]; dWf[l*f+ch][c] = sum_p h_l[ch][p] g[c][p]
-    row_sums(s.cout, gs, acc, offf + static_cast<int64_t>(s.n) * s.f * s.cout);
-    for (int it = threadIdx.x; it < s.n * s.f * s.cout; it += blockDim.x) {
-      const int c = it % s.cout, row = it / s.cout;       // row = l*f + ch
-      const float* h = act + row * static_cast<int64_t>(kStride);
-      float t2 = 0.0f;
-      for (int p = 0; p < kTile; p += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(h + p);
-        const float4 gv = *reinterpret_cast<const float4*>(gs + c * kStride + p);
-        t2 = fmaf(hv.x, gv.x, t2);
-        t2 = fmaf(hv.y, gv.y, t2);
-        t2 = fmaf(hv.z, gv.z, t2);
-        t2 = fmaf(hv.w, gv.w, t2);
+    row_sums(s.cout, gs, acc, offbf);
+    if constexpr ((kMask & kHead) != 0) {
+      for (int it = threadIdx.x; it < s.n * s.f * s.cout; it += blockDim.x) {
+        const int c = it % s.cout, row = it / s.cout;     // row = l*f + ch
+        const float* h = act + row * static_cast<int64_t>(kStride);
+        float t2 = 0.0f;
+        for (int p = 0; p < kTile; p += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(h + p);
+          const float4 gv = *reinterpret_cast<const float4*>(gs + c * kStride + p);
+          t2 = fmaf(hv.x, gv.x, t2);
+          t2 = fmaf(hv.y, gv.y, t2);
+          t2 = fmaf(hv.z, gv.z, t2);
+          t2 = fmaf(hv.w, gv.w, t2);
+        }
+        acc[offf + static_cast<int64_t>(row) * s.cout + c] += t2;
       }
-      acc[offf + static_cast<int64_t>(row) * s.cout + c] += t2;
     }
     __syncthreads();
 
@@ -351,7 +377,7 @@ trunk_bwd_kernel(Shape s, Plan plan, const float* __restrict__ x,
           for (int c = 0; c < s.cout; ++c) t2 = fmaf(__ldg(wfr + c), gs[c * kStride + p], t2);
           acc8[k] = t2;
         }
-        if (l < s.n - 1) {
+        if ((kMask & kChain) != 0 && l < s.n - 1) {
           for (int o = 0; o < s.f; o += 4) {
             const float d0 = dnext[(o + 0) * kStride + p];
             const float d1 = dnext[(o + 1) * kStride + p];
@@ -380,7 +406,8 @@ trunk_bwd_kernel(Shape s, Plan plan, const float* __restrict__ x,
       // dW_l, db_l from a_{l-1} (x for l = 0) and dz_l
       const int fin = fan_in(s, l);
       const float* a = l == 0 ? xs : act + (l - 1) * slot;
-      weight_grad(s, fin, l == 0 ? s.ci4 : s.f, a, h, acc, off_w(s, l), red);
+      if constexpr ((kMask & kWeightGrad) != 0)
+        weight_grad(s, fin, l == 0 ? s.ci4 : s.f, a, h, acc, off_w(s, l), red);
       row_sums(s.f, h, acc, off_w(s, l) + static_cast<int64_t>(fin) * s.f);
       if (l == 0 && dx != nullptr) {
         // dx[p][c] = sum_o W_0[c][o] dz_0[o][p]
@@ -441,8 +468,8 @@ int fwd_smem(const Shape& s) {
 }
 
 // The backward's memory layout for a grid of `blocks` blocks (no device
-// query), with its shared-memory size set on the kernel.
-cudaError_t layout(const Shape& s, int blocks, Plan* plan) {
+// query); every instantiation of the backward runs with it.
+Plan layout(const Shape& s, int blocks) {
   Plan pl;
   pl.blocks = blocks;
   pl.core_floats = static_cast<int64_t>(s.ci4 + s.cout) * kStride + 16 * kThreads;
@@ -457,17 +484,24 @@ cudaError_t layout(const Shape& s, int blocks, Plan* plan) {
   pl.smem_bytes = static_cast<int>(used * sizeof(float));
   pl.work_floats =
       blocks * row_stride(s) + (pl.act_shared ? 0 : blocks * pl.act_floats);
-  *plan = pl;
-  return cudaFuncSetAttribute(trunk_bwd_kernel,
+  return pl;
+}
+
+// Each instantiation carries its own shared-memory attribute: set it for
+// the one about to be launched or queried.
+template <int kMask>
+cudaError_t set_bwd_smem(const Plan& pl) {
+  return cudaFuncSetAttribute(trunk_bwd_kernel<kMask>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               pl.smem_bytes);
 }
 
-// The layout with the block count of a persistent grid on the current
-// device: as many blocks as are resident at once, at most one per tile.
+// The layout with the block count of a persistent grid of the product
+// backward on the current device: as many blocks as are resident at once,
+// at most one per tile.
 cudaError_t make_plan(const Shape& s, Plan* plan) {
-  Plan pl;
-  cudaError_t err = layout(s, 0, &pl);
+  Plan pl = layout(s, 0);
+  cudaError_t err = set_bwd_smem<kAllPhases>(pl);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -475,11 +509,35 @@ cudaError_t make_plan(const Shape& s, Plan* plan) {
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, trunk_bwd_kernel, kThreads, pl.smem_bytes)) != cudaSuccess)
+           &per_sm, trunk_bwd_kernel<kAllPhases>, kThreads, pl.smem_bytes)) !=
+      cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t want = static_cast<int64_t>(sms) * per_sm;
-  return layout(s, static_cast<int>(want < s.tiles ? want : s.tiles), plan);
+  *plan = layout(s, static_cast<int>(want < s.tiles ? want : s.tiles));
+  return cudaSuccess;
+}
+
+// One launch of the backward's instantiation kMask over `blocks` blocks;
+// each block leaves its partial gradient row in work.
+template <int kMask>
+cudaError_t launch_bwd(const Shape& s, int blocks, const float* x, const float* g,
+                       const float* w, float* dx, float* work, cudaStream_t stream) {
+  const Plan pl = layout(s, blocks);
+  const cudaError_t err = set_bwd_smem<kMask>(pl);
+  if (err != cudaSuccess) return err;
+  trunk_bwd_kernel<kMask><<<pl.blocks, kThreads, pl.smem_bytes, stream>>>(s, pl, x, g, w,
+                                                                         dx, work);
+  return cudaGetLastError();
+}
+
+// grad = the fixed-order sum of the blocks' partial rows in work
+cudaError_t launch_sum(const Shape& s, int blocks, const float* work, float* grad,
+                       cudaStream_t stream) {
+  const int64_t np = num_params(s);
+  sum_partials_kernel<<<static_cast<unsigned>((np + kThreads - 1) / kThreads), kThreads,
+                        0, stream>>>(work, grad, blocks, np, row_stride(s));
+  return cudaGetLastError();
 }
 
 cudaError_t finish(cudaError_t err) {
@@ -530,15 +588,50 @@ extern "C" int rf_cnn_train_bwd(const float* x, const float* g, const float* w,
   const Shape s = make_shape(n, ci, f, cout, p);
   if (!valid(s) || blocks < 1 || blocks > s.tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl;
-  cudaError_t err = layout(s, blocks, &pl);
+  cudaError_t err = launch_bwd<kAllPhases>(s, blocks, x, g, w, dx, work, stream);
   if (err != cudaSuccess) return static_cast<int>(finish(err));
-  trunk_bwd_kernel<<<pl.blocks, kThreads, pl.smem_bytes, stream>>>(s, pl, x, g, w, dx,
-                                                                   work);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t np = num_params(s);
-  sum_partials_kernel<<<static_cast<unsigned>((np + kThreads - 1) / kThreads), kThreads,
-                        0, stream>>>(work, grad, pl.blocks, np, row_stride(s));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_sum(s, blocks, work, grad, stream));
+}
+
+// Timing variants of the backward (no dx), at the product's plan: the same
+// arguments as rf_cnn_train_bwd less dx, then the instantiation's phase
+// `mask`, followed by the block sum as in the product.  The masks of the
+// split are instantiated: kAllPhases (the product's gradient, bitwise),
+// without dW_l, also without the chain's W_{l+1} dz_{l+1} term (dz_l =
+// [h_l > 0] W_f,l g), also without dW_fuse, and 0, the floor (db_fuse = the
+// sum over tiles of x[t0][0] + g[t0][0], t0 the tile's first pixel, every
+// other entry zero).  With `sum_only` set, `mask` is not read and
+// sum_partials_kernel runs alone over the rows that the previous launch
+// left in work.
+extern "C" int rf_cnn_train_bwd_variant(const float* x, const float* g, const float* w,
+                                        float* grad, float* work, int n, int ci, int f,
+                                        int cout, int64_t p, int blocks, int mask,
+                                        int sum_only, cudaStream_t stream) {
+  const Shape s = make_shape(n, ci, f, cout, p);
+  if (!valid(s) || blocks < 1 || blocks > s.tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (!sum_only) {
+    switch (mask) {
+      case kAllPhases:
+        err = launch_bwd<kAllPhases>(s, blocks, x, g, w, nullptr, work, stream);
+        break;
+      case kRemat | kHead | kChain:
+        err = launch_bwd<kRemat | kHead | kChain>(s, blocks, x, g, w, nullptr, work, stream);
+        break;
+      case kRemat | kHead:
+        err = launch_bwd<kRemat | kHead>(s, blocks, x, g, w, nullptr, work, stream);
+        break;
+      case kRemat:
+        err = launch_bwd<kRemat>(s, blocks, x, g, w, nullptr, work, stream);
+        break;
+      case 0:
+        err = launch_bwd<0>(s, blocks, x, g, w, nullptr, work, stream);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(finish(err));
+  return static_cast<int>(launch_sum(s, blocks, work, grad, stream));
 }

@@ -71,6 +71,9 @@ _SIGNATURES = {
     # x, g, w, grad, dx, work, n, ci, f, cout, p, blocks, stream
     "rf_cnn_train_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
                          _P],
+    # x, g, w, grad, work, n, ci, f, cout, p, blocks, mask, sum_only, stream
+    "rf_cnn_train_bwd_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                                 _I, _I, _P],
 }
 
 _lib = None

@@ -11,6 +11,11 @@ instead of storing them and returns every parameter gradient and,
 optionally, the input cotangent.  The TPU kernel's bf16x3 splits do not
 carry over: the Hopper kernels run plain f32 FMAs.
 
+``trunk_backward_variant`` runs the backward's timing variants (the port
+of scripts/measure_train_bwd_split.py, TPU kernel 19): the same kernel with
+phases removed, whose time differences split the backward's time by phase
+(reflectance_filtering_tpu_torch/scripts/measure_train_bwd_split.py).
+
 Parameters are the JAX package's pytree as torch tensors:
 ``{"conv0": {"kernel": [1, 1, ci, f], "bias": [f]}, ..., "fuse_skip_layers":
 {"kernel": [1, 1, n*f, cout], "bias": [cout]}}`` (HWIO kernels).  The
@@ -88,15 +93,23 @@ def unpack(flat: torch.Tensor, shape: Shape
     return ws, bs
 
 
-def _trunk_math(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """x [P, ci] -> pre [P, cout]: per-layer x @ W + b, ReLU, the skip
-    concat, the fuse."""
+def _activations(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """x [P, ci] -> the conv layers' activations h_0 .. h_{n-1}, each
+    [P, f] (x @ W + b, ReLU; the fuse's W and b, last, are not read)."""
     skips = []
     h = x
     for w, b in zip(weights[:-1], biases[:-1]):
         h = torch.relu(h @ w + b)
         skips.append(h)
+    return skips
+
+
+def _trunk_math(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """x [P, ci] -> pre [P, cout]: per-layer x @ W + b, ReLU, the skip
+    concat, the fuse."""
+    skips = _activations(x, weights, biases)
     cat = skips[0] if len(skips) == 1 else torch.cat(skips, dim=-1)
     return cat @ weights[-1] + biases[-1]
 
@@ -130,7 +143,8 @@ def trunk_backward_plain(x: torch.Tensor, g: torch.Tensor,
     return grads[0], (grads[1] if input_grad else None)
 
 
-def _check(x: torch.Tensor, flat: torch.Tensor, shape: Shape) -> None:
+def _check(x: torch.Tensor, flat: torch.Tensor, shape: Shape,
+           g: torch.Tensor = None) -> None:
     n, ci, f, cout = shape
     _build.check_tensor(x, "x", torch.float32, 2)
     _build.check_tensor(flat, "flat", torch.float32, 1)
@@ -140,6 +154,12 @@ def _check(x: torch.Tensor, flat: torch.Tensor, shape: Shape) -> None:
                                      flat.numel()))
     if flat.device != x.device:
         raise ValueError("x and the parameters must share a device")
+    if g is not None:
+        _build.check_tensor(g, "g", torch.float32, 2)
+        if g.shape != (x.shape[0], cout) or g.device != x.device:
+            raise ValueError("g must be [P, cout] = [{}, {}] on the device "
+                             "of x, got {}".format(x.shape[0], cout,
+                                                   tuple(g.shape)))
 
 
 def _require_kernel_shape(shape: Shape) -> None:
@@ -201,12 +221,7 @@ def trunk_backward(x: torch.Tensor, g: torch.Tensor, flat: torch.Tensor,
     A CPU tensor runs :func:`trunk_backward_plain`; a CUDA tensor launches
     the kernel (a persistent grid of a fixed block count, then a fixed-order
     sum of the blocks' partials: bitwise repeatable)."""
-    _check(x, flat, shape)
-    _build.check_tensor(g, "g", torch.float32, 2)
-    if g.shape != (x.shape[0], shape[3]) or g.device != x.device:
-        raise ValueError("g must be [P, cout] = [{}, {}] on the device of x, "
-                         "got {}".format(x.shape[0], shape[3],
-                                         tuple(g.shape)))
+    _check(x, flat, shape, g)
     if x.device.type == "cpu":
         return trunk_backward_plain(x, g, flat, shape, input_grad)
     _build.require_cuda(x, "trunk_backward")
@@ -218,18 +233,152 @@ def trunk_backward(x: torch.Tensor, g: torch.Tensor, flat: torch.Tensor,
     # the kernels write every entry of grad and dx
     grad = torch.empty_like(flat)
     dx = torch.empty_like(x) if input_grad else None
-    blocks, work_floats = _plan(x.device.index if x.device.index is not None
-                                else torch.cuda.current_device(), shape, p)
-    work = torch.empty(work_floats, dtype=torch.float32, device=x.device)
+    work = backward_workspace(x, shape)
     _build.launch("rf_cnn_train_bwd", x.device, x.data_ptr(), g.data_ptr(),
                   flat.data_ptr(), grad.data_ptr(),
                   dx.data_ptr() if input_grad else None, work.data_ptr(),
-                  *shape, p, blocks)
+                  *shape, p, work.shape[0])
     trunk_backward.launches += 1
+    trunk_backward.dx_launches += int(input_grad)
     return grad, dx
 
 
 trunk_backward.launches = 0
+trunk_backward.dx_launches = 0    # of the launches, those that computed dx
+
+
+def row_stride(shape: Shape) -> int:
+    """Floats per block row of the backward's partial gradients (the
+    parameter count rounded up to 4)."""
+    return (num_params(shape) + 3) // 4 * 4
+
+
+def backward_workspace(x: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """A fresh workspace of the backward for x [P, ci] on its CUDA device:
+    [blocks, floats per block], blocks the persistent grid's.  Its first
+    blocks * row_stride floats are the blocks' partial gradient rows."""
+    return torch.empty(_workspace_shape(x, shape), dtype=torch.float32,
+                       device=x.device)
+
+
+def _workspace_shape(x: torch.Tensor, shape: Shape) -> Tuple[int, int]:
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    blocks, floats = _plan(index, shape, x.shape[0])
+    return blocks, floats // blocks
+
+
+# ---------------------------------------------------------------------------
+# The backward split by phase (TPU kernel 19): timing variants
+# ---------------------------------------------------------------------------
+
+# The phases of the backward: the bits of its template mask in
+# csrc/cnn_train.cu (kRemat, kHead, kChain, kWeightGrad)
+REMAT, HEAD, CHAIN, WEIGHT_GRAD = 1, 2, 4, 8
+# The variants of the backward, in the order of the split: each drops one
+# more phase; the last sums the blocks' rows alone.
+BWD_VARIANTS = ("full", "-dw", "-dw-chain", "-dw-chain-head", "empty",
+                "block sum")
+# the phase mask that each of variants 0-4 runs
+BWD_MASKS = (REMAT | HEAD | CHAIN | WEIGHT_GRAD, REMAT | HEAD | CHAIN,
+             REMAT | HEAD, REMAT, 0)
+TILE = 64   # pixels per tile of the backward (kTile); the floor is per tile
+
+
+def block_sum_plain(work: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """The blocks' partial rows in ``work`` [blocks, ...] summed in block
+    order (the backward's last launch, alone)."""
+    blocks, stride, np_ = work.shape[0], row_stride(shape), num_params(shape)
+    rows = work.reshape(-1)[:blocks * stride].view(blocks, stride)[:, :np_]
+    out = torch.zeros(np_, dtype=torch.float32, device=work.device)
+    for b in range(blocks):
+        out = out + rows[b]
+    return out
+
+
+def trunk_backward_variant_plain(x: torch.Tensor, g: torch.Tensor,
+                                 flat: torch.Tensor, shape: Shape,
+                                 variant: int, work: torch.Tensor = None
+                                 ) -> torch.Tensor:
+    """Plain version of a variant launch: the flat vector that variant
+    ``variant`` (an index into BWD_VARIANTS) computes, its terms written
+    out from the trunk's pieces (a variant that drops the chain's term is
+    no gradient, so no autograd):
+
+    * full: every gradient;
+    * -dw: dW_l zero;
+    * -dw-chain: also dz_l = [h_l > 0] (g W_f,l^T), no W_{l+1} term, so
+      db_l is the sum of that;
+    * -dw-chain-head: also dW_fuse zero;
+    * empty: only db_fuse, each entry the sum over the 64-pixel tiles of
+      x[tile's first pixel, 0] + g[tile's first pixel, 0];
+    * block sum: the rows of ``work`` summed in block order."""
+    n, ci, f, cout = shape
+    if variant == 5:
+        if work is None:
+            raise ValueError("the block sum reads a workspace: pass work")
+        return block_sum_plain(work, shape)
+    mask = BWD_MASKS[variant]
+    grad = torch.zeros_like(flat)
+    gws, gbs = unpack(grad, shape)
+    if not mask & REMAT:
+        gbs[-1].fill_((x[::TILE, 0] + g[::TILE, 0]).sum())
+        return grad
+    ws, bs = unpack(flat, shape)
+    hs = _activations(x, ws, bs)
+    gbs[-1].copy_(g.sum(0))
+    if mask & HEAD:
+        gws[-1].copy_(torch.cat(hs, dim=-1).T @ g)
+    dz = None
+    for l in range(n - 1, -1, -1):
+        dh = g @ ws[-1][l * f:(l + 1) * f].T
+        if mask & CHAIN and l < n - 1:
+            dh = dh + dz @ ws[l + 1].T
+        dz = torch.where(hs[l] > 0, dh, torch.zeros_like(dh))
+        gbs[l].copy_(dz.sum(0))
+        if mask & WEIGHT_GRAD:
+            gws[l].copy_((x if l == 0 else hs[l - 1]).T @ dz)
+    return grad
+
+
+def trunk_backward_variant(x: torch.Tensor, g: torch.Tensor,
+                           flat: torch.Tensor, shape: Shape, variant: int,
+                           work: torch.Tensor) -> torch.Tensor:
+    """A timing variant of the backward launch (BWD_VARIANTS[variant]) ->
+    its flat vector; no dx.  ``work`` is ``backward_workspace(x, shape)``.
+    Variants 0-4 run the backward with the phases of BWD_MASKS[variant],
+    at the product's block count and shared-memory layout, leaving the
+    blocks' rows in ``work``, then the block sum; variant 0 is the
+    product's gradient bit for bit.  Variant 5 runs the block sum alone
+    over the rows an earlier variant launch left in ``work``.
+
+    A CPU tensor runs :func:`trunk_backward_variant_plain`; a CUDA tensor
+    launches the kernel."""
+    _check(x, flat, shape, g)
+    if variant not in range(len(BWD_VARIANTS)):
+        raise ValueError("variant must be 0..{}, got {}".format(
+            len(BWD_VARIANTS) - 1, variant))
+    if x.device.type == "cpu":
+        return trunk_backward_variant_plain(x, g, flat, shape, variant, work)
+    _build.require_cuda(x, "trunk_backward_variant")
+    _require_kernel_shape(shape)
+    if not x.shape[0]:
+        raise ValueError("trunk_backward_variant needs at least one pixel")
+    _build.check_tensor(work, "work", torch.float32, 2)
+    if (tuple(work.shape) != _workspace_shape(x, shape)
+            or work.device != x.device):
+        raise ValueError("work must be backward_workspace(x, shape)")
+    sum_only = variant == len(BWD_MASKS)
+    grad = torch.empty_like(flat)
+    _build.launch("rf_cnn_train_bwd_variant", x.device, x.data_ptr(),
+                  g.data_ptr(), flat.data_ptr(), grad.data_ptr(),
+                  work.data_ptr(), *shape, x.shape[0], work.shape[0],
+                  0 if sum_only else BWD_MASKS[variant], int(sum_only))
+    trunk_backward_variant.launches += 1
+    return grad
+
+
+trunk_backward_variant.launches = 0
 
 
 class _Trunk(torch.autograd.Function):

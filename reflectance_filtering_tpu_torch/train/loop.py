@@ -11,8 +11,10 @@ Loss graph wiring mirrors the reference's training/networks.py:222-301:
   * exact WHDR as a 0-weight 'accuracy' metric (delta pinned to 0.1);
   * boundary losses on reflectance and shading when
     loss_scale_boundaries01 != 0 and RS_est_mode != rDirectly;
-  * lambert (EuclideanLoss of R*S vs I) when RS_est_mode == 'RS'.
-The cascade network is not ported (ROADMAP module queue item 10).
+  * lambert (EuclideanLoss of R*S vs I) when RS_est_mode == 'RS';
+  * cascadeSkipLayers adds the level-0 hinge and WHDR.
+Batch normalization's running statistics are folded in after each
+optimizer step.
 
 Solver semantics follow the reference's _get_solver: ADAM (caffe defaults
 b1=.9, b2=.999, eps=1e-8; torch's Adam and optax's adam are the same
@@ -32,7 +34,7 @@ from ..losses.whdr import (MAX_EVALUATED_COMPARISONS, parse_wdm_string,
                            select_comparisons_host, whdr_batch,
                            whdr_hinge_batch, whdr_per_image)
 from ..models.networks import (NetworkConfig, apply_network, init_network,
-                               params_to_torch)
+                               params_to_torch, update_bn_stats)
 from ..models.recover import recover_reflectance_shading
 
 
@@ -98,6 +100,9 @@ def optimizer_state(optimizer: torch.optim.Optimizer,
     out = {"count": 0, "mu": {}, "nu": {}}
     for layer in params:
         for part, t in params[layer].items():
+            # a leaf that never had a gradient (batch norm's running
+            # statistics) has no state: zeros, as the JAX package's Adam
+            # keeps for it
             st = optimizer.state.get(t, {})
             for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
                 v = st.get(key)
@@ -105,7 +110,7 @@ def optimizer_state(optimizer: torch.optim.Optimizer,
                     np.zeros(tuple(t.shape), np.float32) if v is None
                     else v.detach().cpu().numpy())
             if "step" in st:
-                out["count"] = int(st["step"])
+                out["count"] = max(out["count"], int(st["step"]))
     return out
 
 
@@ -165,7 +170,9 @@ def compute_losses(params: Dict, images: torch.Tensor,
     :func:`select_comparisons_host`, so the hinge applies only the prefix
     mask.  ``generator`` draws the hinge's >1500 cap on the device.
     ``kernels=False`` runs the trunk and the gather through their plain
-    versions on any device (the reference run on the card)."""
+    versions on any device (the reference run on the card).  With batch
+    normalization in training, metrics['bn_stats'] holds the detached batch
+    statistics for :func:`update_bn_stats`."""
     if metric_comparisons is None:
         metric_comparisons = comparisons
     delta, margin, ratio, eval_dense = loss_cfg.wdm
@@ -176,7 +183,13 @@ def compute_losses(params: Dict, images: torch.Tensor,
     mode = net_cfg.rs_est_mode.split("-")[0]
     reflectance, shading = _reflectance(blobs, images, net_cfg)
 
-    metrics: Dict[str, torch.Tensor] = {}
+    metrics: Dict[str, Any] = {}
+    bn_stats = blobs.get("__bn_stats__")
+    if bn_stats:
+        metrics["bn_stats"] = {name: {k: v.detach() for k, v in st.items()}
+                               for name, st in bn_stats.items()}
+    # the JAX package draws both levels' hinge selections from one key
+    draw_state = None if generator is None else generator.get_state()
     hinge = whdr_hinge_batch(reflectance, comparisons, delta, margin, ratio,
                              eval_dense, generator, kernels)
     metrics["loss_whdr_hinge"] = hinge
@@ -199,6 +212,18 @@ def compute_losses(params: Dict, images: torch.Tensor,
         metrics["loss_lambert"] = lam
         total = total + loss_cfg.loss_scale_lambert * lam
 
+    if net_cfg.network_type == "cascadeSkipLayers":
+        refl0 = blobs["reflectance_level0"]
+        if generator is not None:
+            generator.set_state(draw_state)
+        hinge0 = whdr_hinge_batch(refl0, comparisons, delta, margin, ratio,
+                                  eval_dense, generator, kernels)
+        metrics["loss_whdr_hinge_level0"] = hinge0
+        total = total + loss_cfg.loss_scale_whdr * hinge0
+        with torch.no_grad():
+            metrics["whdr_original_level0"] = whdr_batch(
+                refl0.detach(), metric_comparisons, 0.1, kernels)
+
     metrics["loss_total"] = total
     return total, metrics
 
@@ -209,7 +234,9 @@ def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
                     ) -> Callable:
     """One training step over ``params`` (updated in place):
     (images, comparisons, generator=None, metric_comparisons=None) ->
-    metrics (0-d tensors on the device, detached)."""
+    metrics (0-d tensors on the device, detached).  Batch normalization's
+    running statistics are folded in after the optimizer step (its
+    mean/var leaves get no gradient, so the optimizer leaves them)."""
 
     def step(images, comparisons, generator=None, metric_comparisons=None):
         optimizer.zero_grad(set_to_none=True)
@@ -219,6 +246,9 @@ def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
             preselected=preselected, kernels=kernels)
         total.backward()
         optimizer.step()
+        bn_stats = metrics.pop("bn_stats", None)
+        if bn_stats:
+            update_bn_stats(params, bn_stats)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
                  "ops.bilateral_kernel", "ops.box_kernel",
                  "ops.boxfilter", "ops.cnn_kernel", "ops.cnn_train_kernel",
                  "ops.guided", "ops.guided_kernel", "ops.whdr_gather",
-                 "train.checkpoint", "train.description", "train.loop",
+                 "scripts.measure_train_bwd_split", "train.checkpoint", "train.description", "train.loop",
                  "train.monitors", "train.predict", "utils.image",
                  "utils.serving", "utils.testimages"):
         assert "reflectance_filtering_tpu_torch." + name in out["imported"]

@@ -362,3 +362,67 @@ def test_scatter_kernel_matches_index_put(dev, b, h, w, k):
     want = scatter_pairs_plain((b, h, w), *idx, g1, g2)
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
     assert torch.equal(got, scatter_pairs((b, h, w), *idx, g1, g2))
+
+
+@pytest.mark.parametrize("shape,p", [((5, 3, 32, 1), 4 * 96 * 128),
+                                     ((2, 5, 40, 3), 129),
+                                     ((3, 8, 256, 8), 777)])
+def test_backward_variants_match_plain(dev, shape, p):
+    """K7's timing variants (TPU kernel 19): the full one bitwise equal to
+    the product backward, the others within 2e-4 of each leaf's max of
+    their plain versions, the block sum alone bitwise equal to the rows
+    the last launch left summed in order (the wide trunk keeps its
+    activations in the workspace instead of shared memory)."""
+    x, cot, flat = _k7_inputs(dev, shape, p, seed=4)
+    work = k7.backward_workspace(x, shape)
+    product, _ = k7.trunk_backward(x, cot, flat, shape, False)
+    before = k7.trunk_backward_variant.launches
+    for variant in range(5):
+        got = k7.trunk_backward_variant(x, cot, flat, shape, variant, work)
+        if variant == 0:
+            assert torch.equal(got, product)
+        want = k7.trunk_backward_variant_plain(x, cot, flat, shape, variant)
+        for part in (0, 1):
+            for a, b in zip(k7.unpack(got, shape)[part],
+                            k7.unpack(want, shape)[part]):
+                assert (a - b).abs().max().item() <= (
+                    2e-4 * b.abs().max().item()), (variant, part)
+    summed = k7.trunk_backward_variant(x, cot, flat, shape, 5, work)
+    assert torch.equal(summed, k7.block_sum_plain(work, shape))
+    assert torch.equal(summed, got)    # the rows variant 4 left
+    assert k7.trunk_backward_variant.launches == before + 6
+    with pytest.raises(ValueError, match="work"):
+        k7.trunk_backward_variant(x, cot, flat, shape, 5, work[:1])
+
+
+def test_cascade_through_apply_network(dev):
+    """cascadeSkipLayers on the card: both levels' trunks run K7 (two
+    forward and two backward launches, the level-1 backward with the input
+    cotangent that carries the loss back to level 0), and every gradient,
+    level 0's included, matches the plain per-layer path on the card
+    within 2e-4 of its leaf's max."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, apply_network, init_network)
+    cfg = NetworkConfig(network_type="cascadeSkipLayers", num_layers=3,
+                        num_filters_log=4, rs_est_mode="rRelMax")
+    params = init_network(cfg, torch.Generator().manual_seed(2), dev)
+    leaves = [t.requires_grad_() for layer in params.values()
+              for t in layer.values()]
+    imgs = torch.rand(2, 40, 56, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    grads = {}
+    for kernels in (True, False):
+        before = (k7.trunk_forward.launches, k7.trunk_backward.launches,
+                  k7.trunk_backward.dx_launches)
+        blobs = apply_network(params, imgs, cfg, train=True, kernels=kernels)
+        loss = (blobs["RS_est"] ** 2).sum()
+        grads[kernels] = torch.autograd.grad(loss, leaves)
+        after = (k7.trunk_forward.launches, k7.trunk_backward.launches,
+                 k7.trunk_backward.dx_launches)
+        assert after == ((before[0] + 2, before[1] + 2, before[2] + 1)
+                         if kernels else before)
+    names = [(name, part) for name, layer in params.items() for part in layer]
+    for (name, part), a, b in zip(names, grads[True], grads[False]):
+        assert b.abs().max().item() > 0, (name, part)
+        assert (a - b).abs().max().item() <= 2e-4 * b.abs().max().item(), (
+            name, part)

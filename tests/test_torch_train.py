@@ -441,11 +441,32 @@ def test_init_network_is_caffe_xavier():
     assert all(float(d["bias"].abs().max()) == 0 for d in p.values())
     again = init_network(cfg, torch.Generator().manual_seed(0))
     assert torch.equal(again["conv3"]["kernel"], p["conv3"]["kernel"])
-    for t in ("uNet", "cascadeSkipLayers"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            init_network(NetworkConfig(network_type=t))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        init_network(NetworkConfig(use_batch_normalization=True))
+    # uNet, the cascade and batch normalization initialise as the JAX
+    # package lays them out, and train: one Adam step moves every kernel
+    for kw in (dict(network_type="uNet", num_layers=1),
+               dict(network_type="cascadeSkipLayers", num_layers=2,
+                    num_filters_log=3),
+               dict(SKIP, num_layers=2, num_filters_log=3,
+                    use_batch_normalization=True)):
+        kw["rs_est_mode"] = "rRelMax"
+        params = init_network(NetworkConfig(**kw),
+                              torch.Generator().manual_seed(0))
+        assert _leaves(params) == _leaves(_jparams(kw))
+        tparams = tloop.trainable(params, "cpu")
+        step = tloop.make_train_step(
+            NetworkConfig(**kw), tloop.LossConfig(), tparams,
+            tloop.make_optimizer("ADAM", 1e-3, tparams))
+        rng = np.random.RandomState(1)
+        met = step(torch.from_numpy(
+            rng.rand(2, 16, 16, 3).astype(np.float32) * 0.8 + 0.1),
+            torch.from_numpy(np.stack([make_blob(random_comps(rng, 12))
+                                       for _ in range(2)])
+                             .astype(np.float32)))
+        assert np.isfinite(met["loss_total"].item()), kw
+        for layer in params:
+            if "kernel" in params[layer]:
+                assert not torch.equal(tparams[layer]["kernel"],
+                                       params[layer]["kernel"]), layer
 
 
 def test_loader_matches_jax(tmp_path, rng):

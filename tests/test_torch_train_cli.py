@@ -127,6 +127,47 @@ def test_cli_matches_jax_cli_from_the_same_warm_start(dataset, tmp_path):
     assert oa["count"] == ob["count"] == 6
 
 
+def test_cli_default_network_flags_match_jax_cli(dataset, tmp_path):
+    """The CLI's default network (convStaticWithSigmoid, 2 layers of 16
+    3x3 filters, rRelMax: no network flag given) against the JAX CLI from
+    one warm start, at the default learning rate (Adam's steps are about
+    lr in size whatever the gradient, so a gradient near zero moves a
+    parameter by a sign of rounding noise): the validation WHDR of every
+    snapshot within 0.001, the final params within 1e-5."""
+    params = j_init(jax.random.PRNGKey(4), JConfig(
+        network_type="convStaticWithSigmoid", num_layers=2,
+        num_filters_log=4, kernel_pad=1, rs_est_mode="rRelMax"))
+    warm = str(tmp_path / "warm.npz")
+    j_save(warm, params)
+    flags = ["--height=32", "--width=32", "--random_seed=0", "--stage=fit",
+             "--iterations=16", "--batch_size=4", "--checkpoint_interval=8",
+             "--predictCaffemodel", warm]
+    main(["--experiment=d", "--data_root", dataset, "--results_root",
+          str(tmp_path / "t"), "--device", "cpu"] + flags)
+    j_main(["--experiment=d", "--data_root", dataset, "--results_root",
+            str(tmp_path / "j")] + flags)
+    exps = [os.path.join(str(tmp_path / side), "d") for side in ("t", "j")]
+    progs, finals = [], []
+    for exp in exps:
+        name = os.listdir(os.path.join(exp, "progressions"))[0]
+        assert name.startswith("barrista_convStaticWithSigmoid_n2_f16_k3")
+        with open(os.path.join(exp, "progressions", name)) as f:
+            progs.append(json.load(f)["test"])
+        snap = [s for s in os.listdir(os.path.join(exp, "snapshots"))
+                if s.endswith("_16.npz")][0]
+        finals.append(load_checkpoint(os.path.join(exp, "snapshots",
+                                                   snap))[0])
+    assert [e["NumIters"] for e in progs[0]] == [8, 16]
+    assert [e["NumIters"] for e in progs[1]] == [8, 16]
+    for a, b in zip(*progs):
+        assert abs(a["WHDR"] - b["WHDR"]) / 100.0 <= 1e-3
+    for layer in finals[1]:
+        for part in finals[1][layer]:
+            np.testing.assert_allclose(finals[0][layer][part],
+                                       finals[1][layer][part], rtol=0,
+                                       atol=1e-5)
+
+
 def test_resume_matches_uninterrupted(dataset, tmp_path):
     common = ["--batch_size=4", "--checkpoint_interval=8"]
     full = _run(dataset, str(tmp_path / "a"), "full", "--stage=fit",
@@ -184,12 +225,26 @@ def test_checkpoint_interval_rounds_to_batch_multiple(dataset, tmp_path):
     (["--stage=fit", "--iterations=8", "--batch_size=4",
       "--profile_dir=x"], NotImplementedError, "item 5"),
     (["--stage=predict", "--predictCaffemodel=x.npz", "--decompose=."],
-     NotImplementedError, "item 12"),
-    (["--stage=fit", "--iterations=8", "--batch_size=4",
-      "--networkType=uNet"], NotImplementedError, "item 10")])
+     NotImplementedError, "item 12")])
 def test_cli_refuses_loudly(dataset, tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         _run(dataset, str(tmp_path), "bad", *extra)
+
+
+def test_cli_fits_unet(dataset, tmp_path):
+    """--networkType=uNet trains and scores (the flags after FLAGS win)."""
+    exp = _run(dataset, str(tmp_path), "unet", "--stage=fit",
+               "--iterations=8", "--batch_size=4", "--checkpoint_interval=4",
+               "--networkType=uNet", "--numLayers=1", "--kernel_pad=1",
+               "--RS_est_mode=rRelMax")
+    snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
+    assert len(snaps) == 2 and all(s.startswith("uNet_") for s in snaps)
+    params = load_checkpoint(os.path.join(exp, "snapshots", snaps[-1]))[0]
+    assert "Conv5" in params and "up1" in params
+    with open(os.path.join(exp, "progressions", os.listdir(
+            os.path.join(exp, "progressions"))[0])) as f:
+        scores = [e["WHDR"] for e in json.load(f)["test"]]
+    assert len(scores) == 2 and all(0 <= s < 100 for s in scores)
 
 
 def test_cuda_without_gpu_asks_for_cpu(dataset, tmp_path, capsys,
