@@ -8,14 +8,16 @@ Phases (any failure exits nonzero before the result line):
   1. device   the card's name and power limit (nvidia-smi), TF32 pinned off;
   2. build    nvcc builds every kernel from reflectance_filtering_tpu_torch/
               csrc/, one process per source (build seconds, the compiler's
-              register report);
+              register report), and K2's uint8 instantiation is checked to
+              issue no MUFU.EX2 (cuobjdump), the float one to issue some;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
               --subsample=4 planes; the joint bilateral K6 at the JAX
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
               photo), float with a 3-plane joint), plus degenerate shapes,
-              gated; the iterated guided chain K9 (3 iterations, r=45,
+              gated (K2 on each input as uint8 levels, cv2's table form,
+              and as float32, the exp form); the iterated guided chain K9 (3 iterations, r=45,
               eps=3) on a 2160x3840 frame, C=1, with its guide statistics
               and one application held alone, on 2 x 480x512 with C=3, and
               on a 12x40 frame narrower than the window;
@@ -83,7 +85,11 @@ Phases (any failure exits nonzero before the result line):
               directly and held against the CPU;
   6. times    CUDA-event times of each kernel and its plain version (and of
               the one PyTorch call computing the same function, where there
-              is one), both slices' images/s, the MP/s of the color-self and
+              is one, K3's and K8's in turns with the kernel's wrapper,
+              medians of 7; K2 on uint8 levels and on float32, and its range
+              table in the product's layout against two others,
+              reflectance_filtering_tpu_torch/scripts/
+              measure_k2_table.py), both slices' images/s, the MP/s of the color-self and
               BF(reflectance, photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
@@ -94,8 +100,10 @@ Phases (any failure exits nonzero before the result line):
               and each instantiation's registers) (not gated);
   7. profile  each slice's, the training step's and the 4K chain's device
               busy time and per-kernel device times (torch.profiler), and
-              the idle share against phase 6's time in the same run (not
-              gated).
+              the idle share against phase 6's time in the same run; K3's
+              device time at 32 x 1181 beside indexing's, and the host's
+              microseconds per K3 call split into checks, allocation and
+              launch (host clock around 1,000 calls) (not gated).
 
 Each phase's header shows the seconds since the script started; the line
 before the kernels line, the whole run's.
@@ -115,6 +123,7 @@ words per SM per clock); the last line is {"ok": true, "device": {...}}.
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -274,6 +283,17 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def time_turns(fn_a, fn_b, iters, rounds=7):
+    """(median ms of fn_a, of fn_b) by :func:`time_ms` over ``rounds``
+    turns, the first of each pair alternating (a b, b a, a b, ...)."""
+    times_a, times_b = [], []
+    for r in range(rounds):
+        pair = [(fn_a, times_a), (fn_b, times_b)]
+        for fn, out in (pair if r % 2 == 0 else pair[::-1]):
+            out.append(time_ms(fn, iters))
+    return statistics.median(times_a), statistics.median(times_b)
+
+
 def device_profile(fn, batches):
     """Device time of fn() per call in ms, from torch.profiler over
     ``batches`` calls after one warm-up: the busy time (the union of every
@@ -299,6 +319,18 @@ def device_profile(fn, batches):
         last = max(last, end)
     return (busy / batches / 1e3,
             {k: v / batches / 1e3 for k, v in per_kernel.items()})
+
+
+def launch_before(name, device, *args):
+    """The kernel launch as ops/_build.py made it before its entry points
+    were resolved once (the yardstick of phase 7's host split)."""
+    from reflectance_filtering_tpu_torch.ops import _build
+    handle = _build.lib()
+    with torch.cuda.device(device):
+        rc = getattr(handle, name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("{} failed: CUDA error {}".format(name, rc))
 
 
 def u8(t):
@@ -554,7 +586,9 @@ def main():
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
-        measure_train_bwd_split as split)
+        measure_k2_table as k2_table, measure_train_bwd_split as split)
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        _check_indices)
     dev = torch.device("cuda", 0)
 
     phase("1. device")
@@ -580,6 +614,19 @@ def main():
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 print("  ptxas:", line.strip())
+    # K2's uint8 form computes no exp: its instantiation's machine code has
+    # no MUFU.EX2 (the float form's has one per pixel-tap)
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         os.path.join(_build.build_dir(), "librf_kernels.so")],
+        capture_output=True, text=True, check=True).stdout
+    ex2 = {("uint8" if "_kernelIh" in fn else "float32"):
+           fn.count("MUFU.EX2") for fn in sass.split("Function : ")[1:]
+           if fn.startswith("_ZN2k226bilateral_gray_self_kernel")}
+    print("K2 MUFU.EX2 instructions per instantiation:", ex2)
+    check(ex2.get("uint8") == 0 and ex2.get("float32", 0) > 0,
+          "K2's uint8 instantiation issues no MUFU.EX2 (no exp)")
 
     phase("3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
@@ -616,28 +663,36 @@ def main():
             torch.unique(torch.floor(refl * 255)).numel()))
 
         r_u8 = torch.floor(refl * 255.0).reshape(B, H, W)
+        r_levels = r_u8.to(torch.uint8)      # what the bf pipeline passes
         cases = [("main path subset", r_u8[:K2_SUBSET].contiguous())]
-        for shape in ((1, 20, 27), (1, 1, 40), (2, 7, 1)):
-            # smaller than the radius (33): repeated reflection; 1-wide
+        for shape in ((1, 20, 27), (1, 1, 40), (2, 7, 1), (2, 37, 70)):
+            # smaller than the radius (33): repeated reflection; 1-wide;
+            # ragged tiles
             cases.append(("{}x{}x{}".format(*shape), torch.from_numpy(
                 np.floor(rng.rand(*shape) * 256).astype(np.float32)).to(dev)))
+        # each case twice: as uint8 levels (cv2's table form, the product's
+        # input) and as float32 (the exp form) on the same planes
         worst = 0.0
         for name, planes in cases:
-            qk = bilateral_gray_self(planes, -1, SIGMA_C, SIGMA_S, reps=3)
-            qp = bilateral_gray_self_plain(planes, -1, SIGMA_C, SIGMA_S,
-                                           reps=3)
-            torch.cuda.synchronize()
-            err = (qk - qp).abs().max().item()
-            worst = max(worst, err)
-            dl = (u8(qk) - u8(qp)).abs()
-            eq = (dl == 0).float().mean().item()
-            print("K2 {}: max|d|={:.3e}  uint8 max {:.0f} level, {:.4%} "
-                  "equal".format(name, err, dl.max().item(), eq))
-            check(dl.max().item() <= 1 and eq >= 0.999,
-                  "K2 {}: <= 1 uint8 level, >= 99.9% equal".format(name))
+            for form in (torch.uint8, torch.float32):
+                x_in = planes.to(form)
+                qk = bilateral_gray_self(x_in, -1, SIGMA_C, SIGMA_S, reps=3)
+                qp = bilateral_gray_self_plain(x_in, -1, SIGMA_C, SIGMA_S,
+                                               reps=3)
+                torch.cuda.synchronize()
+                err = (qk - qp).abs().max().item()
+                worst = max(worst, err)
+                dl = (u8(qk) - u8(qp)).abs()
+                eq = (dl == 0).float().mean().item()
+                print("K2 {} {}: max|d|={:.3e}  uint8 max {:.0f} level, "
+                      "{:.4%} equal".format(name, form, err, dl.max().item(),
+                                            eq))
+                check(err <= 1e-3 and dl.max().item() <= 1 and eq >= 0.999,
+                      "K2 {} {}: <= 1e-3, <= 1 uint8 level, >= 99.9% "
+                      "equal".format(name, form))
         errs["bilateral_gray_self"] = worst
 
-        plane = (u8(bilateral_gray_self(r_u8, -1, SIGMA_C, SIGMA_S))
+        plane = (u8(bilateral_gray_self(r_levels, -1, SIGMA_C, SIGMA_S))
                  / 255.0).contiguous()
         idx = [torch.randint(0, n, (B, K), device=dev, dtype=torch.int32)
                for n in (H, W, H, W)]
@@ -935,8 +990,8 @@ def main():
             xr = (img.flip(1).to(torch.float32) / 255.0).reshape(B, 3, H * W)
             rp = reflectance_cnn_plain(xr, weights, srgb_input=True)
             qp = u8(bilateral_gray_self_plain(
-                torch.floor(rp * 255.0).reshape(B, H, W), -1, SIGMA_C,
-                SIGMA_S))
+                torch.floor(rp * 255.0).reshape(B, H, W).to(torch.uint8), -1,
+                SIGMA_C, SIGMA_S))
             score_p = whdr_batch(qp.cpu() / 255.0, cmp.cpu())
             dl = (q - qp).abs()
             dw = abs(score.item() - score_p.item())
@@ -1241,14 +1296,23 @@ def main():
                                                    srgb_input=True), 20),
             time_ms(lambda: reflectance_cnn_plain(
                 x, weights, srgb_input=True), 20))
+        # K2 on the bf path's uint8 levels (its row), then the float form
+        # on the same planes
         times["bilateral_gray_self"] = (
+            time_ms(lambda: bilateral_gray_self(
+                r_levels, -1, SIGMA_C, SIGMA_S), 10),
+            time_ms(lambda: bilateral_gray_self_plain(
+                r_levels, -1, SIGMA_C, SIGMA_S), 2))
+        k2_float_times = (
             time_ms(lambda: bilateral_gray_self(
                 r_u8, -1, SIGMA_C, SIGMA_S), 10),
             time_ms(lambda: bilateral_gray_self_plain(
-                r_u8, -1, SIGMA_C, SIGMA_S), 2))
-        times["whdr_gather"] = (
-            time_ms(lambda: gather_pairs(plane, *idx), 100),
-            time_ms(lambda: gather_pairs_plain(plane, *idx), 100))
+                r_u8, -1, SIGMA_C, SIGMA_S), 1, warmup=0))
+        # the range table's three layouts in turns, on the served levels
+        # and the script's own planes
+        k2_tables = k2_table.measure(dict(
+            {"served levels": r_levels},
+            **k2_table.make_inputs(dev, args.seed)))
         slice_ms = time_ms(
             lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]), 10)
         planes = box_in["32x256x256"][0]
@@ -1298,23 +1362,27 @@ def main():
             time_ms(lambda: k7.trunk_backward_plain(tx, tg, tflat, tshape,
                                                     False), 5))
         sidx, sg1, sg2 = train_in["scatter"]
-        times["whdr_scatter"] = (
-            time_ms(lambda: scatter_pairs((TB, H, W), *sidx, sg1, sg2), 100),
-            time_ms(lambda: scatter_pairs_plain((TB, H, W), *sidx, sg1, sg2),
-                    100))
-        # the one PyTorch call computing the same function, where there is
-        # one (indices joined beforehand): advanced indexing for K3, a zeroed
-        # plane's index_put_(accumulate=True) for K8
+        # K3 and K8 beside the one PyTorch call computing the same function
+        # (indices joined beforehand): advanced indexing for K3, a zeroed
+        # plane's index_put_(accumulate=True) for K8; each call is bound by
+        # the host, whose speed drifts, so kernel and library in turns
         bi = torch.arange(B, device=dev)[:, None].expand(B, 2 * K)
         yi, xi = (torch.cat([idx[i], idx[i + 2]], 1).long() for i in (0, 1))
         sb = torch.arange(TB, device=dev)[:, None].expand(TB, 2 * K)
         sy, sx = (torch.cat([sidx[i], sidx[i + 2]], 1).long() for i in (0, 1))
         sg = torch.cat([sg1, sg2], 1)
-        library = {
-            "whdr_gather": time_ms(lambda: plane[bi, yi, xi], 100),
-            "whdr_scatter": time_ms(lambda: torch.zeros(
-                (TB, H, W), device=dev).index_put_((sb, sy, sx), sg,
-                                                   accumulate=True), 100)}
+        library = {}
+        ms_k, library["whdr_gather"] = time_turns(
+            lambda: gather_pairs(plane, *idx), lambda: plane[bi, yi, xi], 100)
+        times["whdr_gather"] = (
+            ms_k, time_ms(lambda: gather_pairs_plain(plane, *idx), 100))
+        ms_k, library["whdr_scatter"] = time_turns(
+            lambda: scatter_pairs((TB, H, W), *sidx, sg1, sg2),
+            lambda: torch.zeros((TB, H, W), device=dev).index_put_(
+                (sb, sy, sx), sg, accumulate=True), 100)
+        times["whdr_scatter"] = (
+            ms_k, time_ms(lambda: scatter_pairs_plain((TB, H, W), *sidx, sg1,
+                                                      sg2), 100))
         # the 3x chain on K9 and as three K5 calls, each frame; K9's two
         # launches and their plain versions on the 4K frame
         chain_ms, k5x3_ms = {}, {}
@@ -1354,6 +1422,10 @@ def main():
     for name, (ms, plain_ms) in times.items():
         print("{}: kernel {:.4f} ms, plain {:.4f} ms at the main path's "
               "shapes".format(name, ms, plain_ms))
+    print("bilateral_gray_self float32 {}x{}x{}: kernel {:.4f} ms, plain "
+          "{:.4f} ms (the row above: uint8 levels)".format(B, H, W,
+                                                          *k2_float_times))
+    k2_table.print_table(k2_tables)
     print("box_filter 1x2160x3840 r={}: kernel {:.4f} ms, plain {:.4f} "
           "ms".format(GF_R, *big_times))
     print("guided_filter C=3 32x256x256 r={}: kernel {:.4f} ms, plain "
@@ -1452,6 +1524,45 @@ def main():
     else:
         print("training step: the profiler saw no device time")
 
+    # K3 at the serving shape: its device time, and the host's time per
+    # wrapper call split into checks, allocation and launch, beside the
+    # one indexing call (host clock around 1,000 calls and one synchronize)
+    with torch.no_grad():
+        # one profile of both, a call each per round
+        _, per_kernel = device_profile(
+            lambda: (gather_pairs(plane, *idx), plane[bi, yi, xi]), 50)
+        print("K3 gather_pairs and indexing {}x{}: device ms per call: "
+              "{}".format(B, K, "; ".join(
+                  "{:.5f} {}".format(ms, kernel[:60])
+                  for kernel, ms in per_kernel.items()) or "not seen"))
+        g_out = torch.empty((2, B, K), dtype=torch.float32, device=dev)
+        g_ptrs = [t.data_ptr() for t in idx]
+        host = {
+            "checks": lambda: (_build.check_tensor(plane, "plane",
+                                                   torch.float32, 3),
+                               _check_indices(plane.shape, plane.device,
+                                              idx)),
+            "allocation": lambda: plane.new_empty((2, B, K)).unbind(0),
+            "launch": lambda: _build.launch(
+                "rf_whdr_gather", plane.device, plane.data_ptr(), *g_ptrs,
+                g_out.data_ptr(), g_out.data_ptr() + 4 * B * K, B, H, W, K),
+            # the launch as every wrapper made it before: a device context,
+            # a Stream object and the entry point looked up by name
+            "launch, previous path": lambda: launch_before(
+                "rf_whdr_gather", plane.device, plane.data_ptr(), *g_ptrs,
+                g_out.data_ptr(), g_out.data_ptr() + 4 * B * K, B, H, W, K),
+            "whole gather_pairs": lambda: gather_pairs(plane, *idx),
+            "indexing (library)": lambda: plane[bi, yi, xi]}
+        for part, run in host.items():
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                run()
+            torch.cuda.synchronize()
+            print("K3 host {}: {:.2f} us per call".format(
+                part, (time.perf_counter() - t0) * 1e3))
+
     sources = {
         "cnn_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_fwd.cu",
                     "reflectance_filtering_tpu/ops/cnn_pallas.py:170"),
@@ -1518,8 +1629,9 @@ def main():
     nparams = k7.num_params(tshape)
     bounds = {
         "cnn_fwd": bound(flops=2 * 4352 * px, nbytes=16 * px),
+        # uint8 levels in (1 B), float32 out (4 B)
         "bilateral_gray_self": bound(flops=4 * taps * px, loads=taps * px,
-                                     nbytes=8 * px),
+                                     nbytes=5 * px),
         "whdr_gather": bound(nbytes=32 * B * K),
         "box_filter": bound(nbytes=8 * px),
         "guided_filter": bound(nbytes=20 * px),

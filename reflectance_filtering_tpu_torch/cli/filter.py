@@ -28,6 +28,7 @@ import argparse
 import os
 import sys
 
+from ..ops._build import target_device
 from ..ops.bilateral import joint_bilateral_filter_u8
 from ..ops.guided import fast_guided_filter_u8, guided_filter_u8
 from ..utils import image as iu
@@ -41,10 +42,12 @@ _SUBSAMPLE_CAVEAT = (
 
 def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
                  subsample: int = 1, grid_ss=None, grid_sr=None,
-                 device="cpu"):
-    """Apply the joint-bilateral or guided filter on ``device``;
-    subsample > 1 with filter_type='guided' runs the Fast Guided Filter.
-    The bilateral grid is not ported yet."""
+                 device="cuda"):
+    """Apply the joint-bilateral or guided filter on ``device`` (the card
+    unless the caller asks for the CPU); subsample > 1 with
+    filter_type='guided' runs the Fast Guided Filter.  The bilateral grid
+    is not ported yet."""
+    device = target_device(device)
     if (sigma_color is None or sigma_spatial is None
             or sigma_color <= 0 or sigma_spatial <= 0):
         raise ValueError("Parameters are expected to be positive.")
@@ -73,9 +76,11 @@ def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
 def read_filter_write(filter_type, filename_in, guidance_in,
                       sigma_color, sigma_spatial, path_out,
                       subsample: int = 1, grid_ss=None, grid_sr=None,
-                      device="cpu"):
-    """Read input + guidance, filter, write with the reference's naming
-    (the --subsample fast mode gets its own, ``_guided_sub{n}_...``)."""
+                      device="cuda"):
+    """Read input + guidance, filter on ``device`` (the card unless the
+    caller asks for the CPU), write with the reference's naming (the
+    --subsample fast mode gets its own, ``_guided_sub{n}_...``)."""
+    device = target_device(device)
     basename = os.path.splitext(os.path.basename(filename_in))[0]
     image = iu.imread(filename_in)
     joint = iu.imread(guidance_in)

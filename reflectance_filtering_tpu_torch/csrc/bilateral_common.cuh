@@ -3,6 +3,15 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+// A tile value as float.  2^23 + b has b in its low mantissa bits: exact
+// for any byte, with an integer OR and one float subtract (no conversion
+// pipe).
+__device__ __forceinline__ float get(float v) { return v; }
+__device__ __forceinline__ float get(uint8_t b) {
+  return __uint_as_float(0x4B000000u | b) - 8388608.0f;
+}
 
 // BORDER_REFLECT_101 by index, with period 2(n-1): reflection repeats when
 // the radius exceeds the image (as OpenCV's borderInterpolate and numpy's

@@ -9,107 +9,66 @@
 // the CNN's -r.png reads back as three equal channels).  For each pixel p,
 // over the disk of taps q with dx^2 + dy^2 <= radius^2 (OpenCV's
 // sqrt(...) > radius exclusion, as an exact integer test):
-//   w(q) = exp(reps^2 * (x(q) - x(p))^2 * gcc + (dx^2 + dy^2) * gsc)
 //   out(p) = sum_q w(q) x(q) / sum_q w(q)          (one divide at the end)
-// with BORDER_REFLECT_101 borders.  Input f32 [N, H, W] in 0-255 units,
-// output f32 [N, H, W].
+// with BORDER_REFLECT_101 borders and, by the input's type:
+//   * uint8 levels (both product callers): cv2's table form,
+//       w(q) = sw[dx^2 + dy^2] * cw[|x(q) - x(p)|],
+//     with cw[i] = f32(exp((reps i)^2 gcc)) (cv2's color_weight) and
+//     sw[s] = f32(exp(s gsc)) (its space_weight), both computed in float64
+//     on the host; no exp on the card;
+//   * float32 values (the JAX function's float domain):
+//       w(q) = expf(reps^2 (x(q) - x(p))^2 gcc + (dx^2 + dy^2) gsc).
+// Output f32 [N, H, W] either way.
 //
-// What bounds this kernel on an H100: the exp per tap.  At sigma_s = 22 the
-// disk has 3,409 taps, so a pixel costs 3,409 expf calls plus ~5 FLOPs each,
-// and device memory sees only 8 bytes per pixel.  The function needs less:
-// its inputs are integer levels, so the weight is a 256-entry range table
-// indexed by |x(q) - x(p)| times the tap's spatial weight, as in
-// cv2.bilateralFilter (one table load, a multiply, an FMA and an add per
-// tap); that form is a later change.  The design keeps everything
-// else off that path: one block per 16 x 32 output tile loads the tile and
-// its radius-wide halo into shared memory once (at r = 33, 82 x 98 x 4 B
-// = 32 KB), so every tap is a conflict-free shared-memory read (a warp
-// reads 32 consecutive floats of one row); the loop visits only the disk,
-// row by row, so no weight is computed for the 24% of the square outside
-// it; all threads of a block walk the taps in the same order, so no warp
-// diverges.  expf, not the __expf intrinsic: the fast one is a later
-// change, once it is shown to hold the uint8 gate.
-//
-// Borders are reflected by index, in the kernel (reflect101, shared with K6
-// in bilateral_common.cuh).
+// What bounds it on an H100: the work per tap.  At sigma_s = 22 the disk
+// has 3,409 taps, so a call at 32 x 256x256 walks 7.15 G taps, and device
+// memory sees 5 bytes per pixel (uint8 in, f32 out).  On uint8 levels a
+// tap is one range-table load from shared memory (the bound counts 32
+// such loads per SM per clock), a multiply, an FMA and an add; the float
+// form pays an expf on the SFU.  The design keeps everything else off that
+// path:
+//   * one block per tile loads the tile and its radius-wide halo into
+//     shared memory once, as bytes for uint8 input (at r = 33, a 32 x 128
+//     tile and its halo are 98 rows of 320 B = 31 KB, a quarter of their
+//     floats), widened with an integer OR and a float subtract (get(),
+//     bilateral_common.cuh), so no conversion pipe is used;
+//   * each thread computes several adjacent pixels of a row (8 for uint8,
+//     4 for float): along a disk row a window of tile values slides 4
+//     columns at a time, so one value read from shared memory serves every
+//     pixel of the thread, and so does one spatial weight;
+//   * every thread walks the same taps in the same order (the disk row by
+//     row, dx ascending), so no warp diverges, the spatial weight is read
+//     at one address by the whole warp (a broadcast), and a pixel's sums
+//     run in the plain version's tap order;
+//   * the range table lives in shared memory, replicated per bank with one
+//     entry per signed difference (RangeTable, 64 KB): a warp's 32
+//     lookups are one conflict-free wavefront and a lookup is one
+//     shift-and-add.  scripts/measure_k2_table.py times it against one
+//     signed table (2 KB, bank conflicts when a warp's differences spread)
+//     and a replicated table of |d| (32 KB, two more integer operations a
+//     lookup), built from this template;
+//   * the uint8 blocks are 16 x 32 threads, so that one 64 KB table serves
+//     16 warps, two blocks per SM; the float blocks, which hold no table,
+//     16 x 16 threads over a 16 x 64 tile (their floats fit up to r = 100);
+//   * borders are reflected by index while the tile loads, only for
+//     indices outside the plane (reflect101, shared with K6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bilateral_common.cuh"
+#include "bilateral_gray_self.cuh"
 
-namespace {
-
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-
-__global__ void __launch_bounds__(kTileW * kTileH)
-bilateral_gray_self_kernel(const float* __restrict__ x, float* __restrict__ out,
-                           int h, int w, int radius, float g2, float gsc) {
-  extern __shared__ float tile[];
-  const int sw = kTileW + 2 * radius;
-  const int sh = kTileH + 2 * radius;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t plane = static_cast<size_t>(h) * w;
-  const float* img = x + blockIdx.z * plane;
-
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  for (int i = tid; i < sw * sh; i += kTileW * kTileH) {
-    const int ty = i / sw;
-    const int tx = i - ty * sw;
-    const int gy = reflect101(y0 - radius + ty, h);
-    const int gx = reflect101(x0 - radius + tx, w);
-    tile[i] = img[static_cast<size_t>(gy) * w + gx];
-  }
-  __syncthreads();
-
-  const int ox = x0 + threadIdx.x;
-  const int oy = y0 + threadIdx.y;
-  if (ox >= w || oy >= h) return;  // ragged tile: compute nothing, write nothing
-
-  const float* c = tile + (threadIdx.y + radius) * sw + threadIdx.x + radius;
-  const float center = *c;
-  const int r2 = radius * radius;
-  float acc = 0.0f;
-  float wsum = 0.0f;
-  for (int dy = -radius; dy <= radius; ++dy) {
-    const int dxmax = disk_half_width(r2 - dy * dy);
-    const float* row = c + dy * sw;
-    const float fy2 = static_cast<float>(dy * dy);
-    for (int dx = -dxmax; dx <= dxmax; ++dx) {
-      const float v = row[dx];
-      const float d = v - center;
-      const float wgt = expf(d * d * g2 + (fy2 + static_cast<float>(dx * dx)) * gsc);
-      acc = fmaf(wgt, v, acc);
-      wsum += wgt;
-    }
-  }
-  out[blockIdx.z * plane + static_cast<size_t>(oy) * w + ox] = acc / wsum;
-}
-
-}  // namespace
-
-// x, out [n, h, w] f32 (device); g2 = reps^2 * gcc.  Returns the
-// cudaError_t of the attribute call or of the launch: a radius whose tile
-// does not fit in a block's shared memory (227 KB on an H100, r > 108)
-// fails there with cudaErrorInvalidValue.
-extern "C" int rf_bilateral_gray_self(const float* x, float* out, int n, int h,
-                                      int w, int radius, float g2, float gsc,
-                                      cudaStream_t stream) {
-  const int smem = (kTileH + 2 * radius) * (kTileW + 2 * radius) *
-                   static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bilateral_gray_self_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // reset, so the error does not surface at a later launch
-      return static_cast<int>(err);
-    }
-  }
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
-  const dim3 block(kTileW, kTileH);
-  bilateral_gray_self_kernel<<<grid, block, smem, stream>>>(x, out, h, w, radius,
-                                                            g2, gsc);
-  return static_cast<int>(cudaGetLastError());
+// x [n, h, w] uint8 (u8 = 1) or f32 (u8 = 0), out [n, h, w] f32, tables
+// [256 + radius^2 + 1] f32 (uint8 input only: cw by |d|, then sw by
+// dx^2 + dy^2), all on the device; g2 = reps^2 * gcc (the float form's).
+// Returns the cudaError_t of the attribute call or of the launch: a radius
+// whose shared memory does not fit in a block's 227 KB (float input: r >
+// 100; uint8: r > 113) fails there with cudaErrorInvalidValue.
+extern "C" int rf_bilateral_gray_self(const void* x, float* out, const float* tables,
+                                      int n, int h, int w, int u8, int radius, float g2,
+                                      float gsc, cudaStream_t stream) {
+  if (u8)
+    return k2::launch<uint8_t, k2::RangeTable, 8, 32>(x, out, tables, n, h, w, radius, g2,
+                                                      gsc, stream);
+  return k2::launch<float, k2::RangeTable, 4, 16>(x, out, tables, n, h, w, radius, g2, gsc,
+                                                  stream);
 }

@@ -52,12 +52,6 @@ __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(uint8_t* p, float v) {
   *p = static_cast<uint8_t>(__float2uint_rn(v));
 }
-__device__ __forceinline__ float get(float v) { return v; }
-// 2^23 + b has b in its low mantissa bits: exact for any byte
-__device__ __forceinline__ float get(uint8_t b) {
-  return __uint_as_float(0x4B000000u | b) - 8388608.0f;
-}
-
 template <int CJ, int CS, bool SELF, typename T>
 __global__ void __launch_bounds__(kTileW * kTileH)
 bilateral_joint_kernel(const float* __restrict__ joint,

@@ -45,8 +45,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, weights, out, batch, hw, srgb_input, stream
     "rf_cnn_fwd": [_P, _P, _P, _L, _L, _I, _P],
-    # x, out, n, h, w, radius, g2, gsc, stream
-    "rf_bilateral_gray_self": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # x, out, tables, n, h, w, u8, radius, g2, gsc, stream
+    "rf_bilateral_gray_self": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # plane, y1, x1, y2, x2, l1, l2, b, h, w, k, stream
     "rf_whdr_gather": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, tmp, b, h, w, radius, reflect101, normalize, stream
@@ -77,6 +77,9 @@ _SIGNATURES = {
 }
 
 _lib = None
+_fns = {}              # entry point name -> its ctypes function, set by lib()
+_current_device = None  # () -> the current CUDA device's index, set by lib()
+_current_stream = None  # device index -> its current stream's handle, ditto
 _lock = threading.Lock()
 build_seconds = None  # wall time of the last build in this process
 
@@ -150,8 +153,8 @@ def build_dir() -> str:
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use; argtypes set for every
-    entry point."""
-    global _lib
+    entry point, each resolved once into the table ``launch`` reads."""
+    global _lib, _current_device, _current_stream
     with _lock:
         if _lib is None:
             out_dir = build_dir()
@@ -163,8 +166,14 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _fns[name] = fn
             handle.rf_error_string.argtypes = [ctypes.c_int]
             handle.rf_error_string.restype = ctypes.c_char_p
+            # the raw forms of torch.cuda.current_device() and
+            # torch.cuda.current_stream(i).cuda_stream: the same values,
+            # without a Stream object per call
+            _current_device = torch._C._cuda_getDevice
+            _current_stream = torch._C._cuda_getCurrentRawStream
             _lib = handle
         return _lib
 
@@ -172,14 +181,21 @@ def lib() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device`` with ``args`` followed by
     that device's current stream, and raise if the launch reported an
-    error."""
-    handle = lib()
-    with torch.cuda.device(device):
-        rc = getattr(handle, name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+    error.  The device is made current only when it is not already (the
+    entry points launch on the current device)."""
+    if _lib is None:
+        lib()
+    index = device.index
+    if index is None:
+        index = _current_device()
+    if index == _current_device():
+        rc = _fns[name](*args, _current_stream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = _fns[name](*args, _current_stream(index))
     if rc != 0:
         raise RuntimeError("{} failed: CUDA error {} ({})".format(
-            name, rc, handle.rf_error_string(rc).decode()))
+            name, rc, _lib.rf_error_string(rc).decode()))
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -196,6 +212,18 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
             name, ndim, tuple(t.shape)))
     if not t.is_contiguous():
         raise ValueError("{} must be contiguous".format(name))
+
+
+def target_device(device) -> torch.device:
+    """``device`` as a torch.device.  Raises RuntimeError when it names
+    CUDA and torch sees no GPU: the entry points that take a ``device``
+    default to the card and never drop to the CPU quietly."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device '{}': CUDA is not available here; pass "
+                           "device='cpu' to run the plain versions on the "
+                           "CPU".format(device))
+    return device
 
 
 def require_cuda(t: torch.Tensor, wrapper: str) -> None:

@@ -31,14 +31,11 @@ import numpy as np
 import torch
 
 
-def opencv_bilateral_params(d: int, sigma_color: float, sigma_space: float
-                            ) -> Tuple[int, float, float, np.ndarray]:
-    """Replicate OpenCV's parameter preprocessing.
-
-    Returns (radius, gauss_color_coeff, gauss_space_coeff,
-    taps[[dy, dx, space_weight], ...]) with the disk mask applied in
-    OpenCV's tap order (row-major over the square, skipping r > radius).
-    """
+def opencv_bilateral_coeffs(d: int, sigma_color: float, sigma_space: float
+                            ) -> Tuple[int, float, float]:
+    """OpenCV's parameter preprocessing without the tap list: (radius,
+    gauss_color_coeff, gauss_space_coeff), cheap enough for every kernel
+    call (the tap list is a few milliseconds of Python at radius 33)."""
     if sigma_color <= 0:
         sigma_color = 1.0
     if sigma_space <= 0:
@@ -49,8 +46,19 @@ def opencv_bilateral_params(d: int, sigma_color: float, sigma_space: float
         radius = int(round(sigma_space * 1.5))
     else:
         radius = d // 2
-    radius = max(radius, 1)
+    return max(radius, 1), gauss_color_coeff, gauss_space_coeff
 
+
+def opencv_bilateral_params(d: int, sigma_color: float, sigma_space: float
+                            ) -> Tuple[int, float, float, np.ndarray]:
+    """Replicate OpenCV's parameter preprocessing.
+
+    Returns (radius, gauss_color_coeff, gauss_space_coeff,
+    taps[[dy, dx, space_weight], ...]) with the disk mask applied in
+    OpenCV's tap order (row-major over the square, skipping r > radius).
+    """
+    radius, gauss_color_coeff, gauss_space_coeff = opencv_bilateral_coeffs(
+        d, sigma_color, sigma_space)
     taps = []
     for i in range(-radius, radius + 1):
         for j in range(-radius, radius + 1):
@@ -61,6 +69,25 @@ def opencv_bilateral_params(d: int, sigma_color: float, sigma_space: float
             taps.append((i, j, w))
     return radius, gauss_color_coeff, gauss_space_coeff, np.asarray(
         taps, dtype=np.float64)
+
+
+def range_weights(gauss_color_coeff: float, reps: int = 1) -> np.ndarray:
+    """cv2.bilateralFilter's color_weight for a plane of uint8 levels that
+    stands for ``reps`` identical channels: cw[i] = f32(exp((reps*i)^2 *
+    gauss_color_coeff)), i = |x(q) - x(p)| in 0..255, computed in float64
+    before the cast, as cv2 computes it (the summed |delta| over the
+    channels is reps*i, squared as an integer)."""
+    return np.asarray([math.exp((reps * i) ** 2 * gauss_color_coeff)
+                       for i in range(256)], dtype=np.float32)
+
+
+def space_weights(radius: int, gauss_space_coeff: float) -> np.ndarray:
+    """The disk's spatial weights by squared distance: sw[s] = f32(exp(s *
+    gauss_space_coeff)), s = dx^2 + dy^2 in 0..radius^2, in float64 before
+    the cast (each tap's weight in :func:`opencv_bilateral_params`)."""
+    return np.asarray([math.exp(s * gauss_space_coeff)
+                       for s in range(radius * radius + 1)],
+                      dtype=np.float32)
 
 
 def reflect101_index(n: int, radius: int, device) -> torch.Tensor:
@@ -129,13 +156,14 @@ def joint_bilateral_filter(joint, src, d: int = -1,
 def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
                               sigma_color: float = 20.0,
                               sigma_space: float = 22.0,
-                              device="cpu") -> np.ndarray:
+                              device="cuda") -> np.ndarray:
     """uint8 wrapper with cvRound (round-half-to-even) output, on
-    ``device``.
+    ``device`` (the card unless the caller asks for the CPU).
 
     The JAX package's dispatch (reflectance_filtering_tpu/ops/
     bilateral.py:139-180): joint == src with identical channels (the
-    BF(CNN,CNN) -r.png) runs the gray self-guided filter (K2); joint == src
+    BF(CNN,CNN) -r.png) runs the gray self-guided filter (K2, on the uint8
+    plane itself: cv2's table form); joint == src
     in color runs the color self-guided filter (cv2.bilateralFilter); every
     other pairing runs the u8 joint filter on the joint and src reduced to
     their distinct planes (a mono joint to one plane standing for its
@@ -143,9 +171,10 @@ def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
     from .bilateral_joint_kernel import (bilateral_color_self_batched,
                                          bilateral_packed_joint_batched,
                                          check_channels)
+    from . import _build
     from .bilateral_kernel import bilateral_gray_self
 
-    device = torch.device(device)
+    device = _build.target_device(device)
     j = np.asarray(joint_u8)
     s = np.asarray(src_u8)
     self_joint = j is s or (j.shape == s.shape and np.array_equal(j, s))
@@ -159,10 +188,12 @@ def joint_bilateral_filter_u8(joint_u8, src_u8, d: int = -1,
             a.astype(np.float32), -1, 0))[None]).to(device)
 
     if self_joint and mono:
-        plane = torch.as_tensor(
-            (j if j.ndim == 2 else j[..., 0]).astype(np.float32),
-            device=device)
-        out = bilateral_gray_self(plane[None].contiguous(), d, sigma_color,
+        plane = j if j.ndim == 2 else j[..., 0]
+        # uint8 levels take K2's table form, any other dtype its float form
+        if plane.dtype != np.uint8:
+            plane = plane.astype(np.float32)
+        plane = torch.from_numpy(np.ascontiguousarray(plane)).to(device)
+        out = bilateral_gray_self(plane[None], d, sigma_color,
                                   sigma_space, reps=j_reps)[0].cpu().numpy()
         if j.ndim == 3:
             out = np.repeat(out[..., None], j.shape[-1], axis=-1)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .bilateral import opencv_bilateral_params, pad_reflect101
+from .bilateral import opencv_bilateral_coeffs, pad_reflect101
 
 TILE_H, TILE_W = 16, 32               # csrc/bilateral_joint.cu's kTileH, kTileW
 SMEM_LIMIT = 232448                   # shared memory one H100 block can take
@@ -116,8 +116,8 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
                              tuple(joint.shape), tuple(src.shape)))
     if src.device != joint.device:
         raise ValueError("joint and src must share a device")
-    radius, gcc, gsc, _ = opencv_bilateral_params(d, sigma_color,
-                                                  sigma_space)
+    radius, gcc, gsc = opencv_bilateral_coeffs(d, sigma_color,
+                                               sigma_space)
     gcc = gcc * float(joint_reps * joint_reps)
     if joint.device.type == "cpu":
         return bilateral_joint_plain(joint, src, radius, gcc, gsc)

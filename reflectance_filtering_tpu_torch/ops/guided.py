@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from .box_kernel import box_filter_planar
 from .guided_chain_kernel import guided_filter_chain
 from .guided_kernel import guided_ab_means, guided_apply, guided_filter_fused
@@ -185,11 +186,12 @@ def _planar_u8(guide3: np.ndarray, src_u8: np.ndarray, device, filt):
 
 
 def guided_filter_u8(guide_u8, src_u8, radius: int, eps,
-                     device="cpu") -> np.ndarray:
-    """uint8 wrapper with OpenCV rounding: float32 math on ``device``,
-    round-half-to-even, clip to 0-255.  A color guide runs the planar
-    filter (K5 on CUDA), a gray one the scalar formulas (over K4)."""
-    device = torch.device(device)
+                     device="cuda") -> np.ndarray:
+    """uint8 wrapper with OpenCV rounding: float32 math on ``device`` (the
+    card unless the caller asks for the CPU), round-half-to-even, clip to
+    0-255.  A color guide runs the planar filter (K5 on CUDA), a gray one
+    the scalar formulas (over K4)."""
+    device = _build.target_device(device)
     g = np.asarray(guide_u8)
     s = np.asarray(src_u8)
     if g.ndim == 3 and g.shape[-1] == 3:
@@ -203,11 +205,13 @@ def guided_filter_u8(guide_u8, src_u8, radius: int, eps,
 
 
 def fast_guided_filter_u8(guide_u8, src_u8, radius: int, eps,
-                          subsample: int = 4, device="cpu") -> np.ndarray:
+                          subsample: int = 4, device="cuda") -> np.ndarray:
     """uint8 wrapper for :func:`fast_guided_filter`, the CLI's
-    ``--subsample`` mode.  A gray guide is replicated to three channels:
-    the fast filter approximates the exact product path, which feeds the
-    CNN's replicated-gray -r.png through the 3-channel filter too."""
+    ``--subsample`` mode, on ``device`` (the card unless the caller asks
+    for the CPU).  A gray guide is replicated to three channels: the fast
+    filter approximates the exact product path, which feeds the CNN's
+    replicated-gray -r.png through the 3-channel filter too."""
+    device = _build.target_device(device)
     g = np.asarray(guide_u8)
     s = np.asarray(src_u8)
     if subsample <= 1:

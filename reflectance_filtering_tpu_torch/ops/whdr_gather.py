@@ -7,6 +7,12 @@ range -> (l1, l2) [B, K].  The forward kernel copies values, so it is
 bitwise equal to indexing.  ``gather_pairs`` is differentiable with respect
 to the plane: its backward is :func:`scatter_pairs` (K8 on CUDA), which sums
 the cotangents of all points that read the same pixel, in a fixed order.
+
+At the serving shape (32 x 1,181) K3 runs ~2 us on the card, so a call
+costs its host path: the checks in one pass, one [2, B, K] allocation whose
+rows are l1 and l2, and one ctypes launch (``_build.launch``); the wrapper
+keeps each short, so that the call costs less host time than one indexing
+call (chip_smoke.py phase 7 splits it).
 """
 from __future__ import annotations
 
@@ -39,10 +45,20 @@ def scatter_pairs_plain(shape: Sequence[int], y1: torch.Tensor,
     return out.index_put_(index, torch.cat([g1, g2], dim=1), accumulate=True)
 
 
+_INDEX_NAMES = ("y1", "x1", "y2", "x2")
+
+
 def _check_indices(plane_shape, device, idx) -> None:
-    for name, t in zip(("y1", "x1", "y2", "x2"), idx):
-        _build.check_tensor(t, name, torch.int32, 2)
-        if t.shape != idx[0].shape or t.shape[0] != plane_shape[0]:
+    """Raise unless the four indices are contiguous int32 [B, K] tensors
+    of one shape, with the plane's B, on ``device``: one pass, whose common
+    case is a few attribute reads per tensor (the messages come from
+    ``check_tensor``)."""
+    shape = idx[0].shape if isinstance(idx[0], torch.Tensor) else None
+    for name, t in zip(_INDEX_NAMES, idx):
+        if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+                and t.dim() == 2 and t.is_contiguous()):
+            _build.check_tensor(t, name, torch.int32, 2)
+        if t.shape != shape or shape[0] != plane_shape[0]:
             raise ValueError("indices must all be [B, K] with B = {}, got "
                              "{} for {}".format(plane_shape[0],
                                                 tuple(t.shape), name))
@@ -51,19 +67,22 @@ def _check_indices(plane_shape, device, idx) -> None:
 
 
 def _gather(plane: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
-    if plane.device.type == "cpu":
-        return gather_pairs_plain(plane, *idx)
-    _build.require_cuda(plane, "gather_pairs")
+    """(l1, l2): on CUDA, the two rows of one [2, B, K] allocation."""
+    if not plane.is_cuda:
+        if plane.device.type == "cpu":
+            return gather_pairs_plain(plane, *idx)
+        _build.require_cuda(plane, "gather_pairs")
     b, h, w = plane.shape
     k = idx[0].shape[1]
-    l1 = torch.empty((b, k), dtype=torch.float32, device=plane.device)
-    l2 = torch.empty_like(l1)
-    if l1.numel():
+    out = plane.new_empty((2, b, k))
+    if b * k:
+        ptr = out.data_ptr()
         _build.launch("rf_whdr_gather", plane.device, plane.data_ptr(),
-                      *(t.data_ptr() for t in idx), l1.data_ptr(),
-                      l2.data_ptr(), b, h, w, k)
+                      idx[0].data_ptr(), idx[1].data_ptr(),
+                      idx[2].data_ptr(), idx[3].data_ptr(), ptr,
+                      ptr + 4 * b * k, b, h, w, k)
         gather_pairs.launches += 1
-    return l1, l2
+    return out.unbind(0)
 
 
 def scatter_pairs(shape: Sequence[int], y1: torch.Tensor, x1: torch.Tensor,
@@ -129,7 +148,9 @@ def gather_pairs(plane: torch.Tensor, y1: torch.Tensor, x1: torch.Tensor,
     A CPU tensor runs :func:`gather_pairs_plain`; a CUDA tensor launches
     K3.  When the plane requires grad the call is differentiable, with
     :func:`scatter_pairs` as its backward."""
-    _build.check_tensor(plane, "plane", torch.float32, 3)
+    if not (isinstance(plane, torch.Tensor) and plane.dtype == torch.float32
+            and plane.dim() == 3 and plane.is_contiguous()):
+        _build.check_tensor(plane, "plane", torch.float32, 3)
     idx = (y1, x1, y2, x2)
     _check_indices(plane.shape, plane.device, idx)
     if plane.requires_grad and torch.is_grad_enabled():

@@ -6,9 +6,9 @@ BGR batch [B, 3, H, W] to [B, H, W] on ``device``:
 
   * ``"cnn"`` -> the reflectance intensity in (0, 1) (K1);
   * ``"bf"``  -> BF(CNN,CNN): reflectance, the -r.png byte path
-    ``floor(r*255)``, the self-guided gray bilateral at sigma_c=20,
-    sigma_s=22 with reps=3 (-r.png reads back as three equal channels;
-    K2), then the product's uint8 write path ``clip(rint(q), 0, 255)``,
+    ``floor(r*255)`` as uint8, the self-guided gray bilateral at
+    sigma_c=20, sigma_s=22 with reps=3 (-r.png reads back as three equal
+    channels; K2 in cv2's table form), then the product's uint8 write path ``clip(rint(q), 0, 255)``,
     returned as uint8-valued float32;
   * ``"gf"``  -> GF(CNN, image): the same ``floor(r*255)`` reflectance,
     guided-filtered at r=45, eps=3 with the photo (RGB, 0-255 floats) as
@@ -47,7 +47,9 @@ def pipeline_fn(kind: str, net: ReflectanceNet, device):
         # imwrite's percentile normalize)
         r_u8 = torch.floor(cnn(img_bgr_u8_planar) * 255.0)
         if kind == "bf":
-            q = bilateral_gray_self(r_u8, -1, 20.0, 22.0, reps=3)
+            # as uint8 levels (exact: they lie in 0-254), K2's table form
+            q = bilateral_gray_self(r_u8.to(torch.uint8), -1, 20.0, 22.0,
+                                    reps=3)
         else:
             # guidance = the original photo (RGB planar, 0-255)
             guide = img_bgr_u8_planar.to(r_u8.device).flip(1).to(

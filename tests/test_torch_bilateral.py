@@ -1,6 +1,7 @@
 """Port bilateral filters (ops/bilateral.py, ops/bilateral_kernel.py)
 against the JAX package: the XLA tap scan ``joint_bilateral_filter``, the
 Pallas gray-self kernel in TPU-interpret mode and the uint8 dispatch."""
+import cv2
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -84,6 +85,61 @@ def _u8_gate(got, exp):
                                                        (d == 0).mean())
 
 
+def _levels(rng, *shape):
+    return np.floor(rng.rand(*shape) * 256).astype(np.uint8)
+
+
+def _to_u8(q):
+    return np.clip(np.rint(np.asarray(q)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("reps", [3, 1])
+def test_gray_self_u8_matches_pallas_interpret(reps, rng):
+    """K2's uint8 form (cv2's range and space tables) against the Pallas
+    kernel's exp form in interpret mode, on the same levels as float32:
+    within 1 uint8 level, equal on >= 99.9%."""
+    x = _levels(rng, 2, 30, 40)
+    with pltpu.force_tpu_interpret_mode():
+        exp = np.asarray(bilateral_gray_self_batched(
+            jnp.asarray(x.astype(np.float32)), -1, 20.0, 3.0, reps=reps,
+            auto_pack=False))
+    got = bilateral_gray_self(torch.from_numpy(x), -1, 20.0, 3.0,
+                              reps=reps)
+    assert got.dtype == torch.float32
+    _u8_gate(_to_u8(got.numpy()), _to_u8(exp))
+
+
+@pytest.mark.parametrize("shape,sigma_space", [((37, 53), 3.0),
+                                               ((37, 53), 22.0),
+                                               ((1, 40), 22.0),
+                                               ((45, 1), 3.0)])
+def test_gray_self_u8_matches_cv2(shape, sigma_space, rng):
+    """K2's uint8 form on a gray image replicated to three channels (the
+    -r.png) against cv2.bilateralFilter on that image: odd shapes, and
+    1-wide ones (reflection maps every index to 0)."""
+    g = _levels(rng, *shape)
+    ref = cv2.bilateralFilter(np.stack([g] * 3, axis=-1), -1, 20.0,
+                              sigma_space)[..., 0]
+    got = bilateral_gray_self(torch.from_numpy(g[None]), -1, 20.0,
+                              sigma_space, reps=3)[0]
+    _u8_gate(_to_u8(got.numpy()), ref)
+
+
+def test_gray_self_tables():
+    """The uint8 form's tables are cv2's, in float64 before the cast: the
+    range weight of |d| at reps 3 is color_weight[3 |d|], and each tap's
+    spatial weight is opencv_bilateral_params' by its squared distance."""
+    radius, gcc, gsc, taps = tbil.opencv_bilateral_params(-1, 20.0, 22.0)
+    cw = tbil.range_weights(gcc, 3)
+    assert cw.dtype == np.float32 and cw.shape == (256,)
+    np.testing.assert_array_equal(cw, np.float32(
+        [np.exp(float((3 * i) ** 2) * gcc) for i in range(256)]))
+    sw = tbil.space_weights(radius, gsc)
+    assert sw.shape == (radius * radius + 1,)
+    s = (taps[:, 0] ** 2 + taps[:, 1] ** 2).astype(np.int64)
+    np.testing.assert_array_equal(sw[s], taps[:, 2].astype(np.float32))
+
+
 @pytest.mark.parametrize("case", ["gray_self_3ch", "gray_self_2d",
                                   "color_self", "joint_ne_src"])
 def test_u8_dispatch_matches_jax(case, rng):
@@ -155,6 +211,9 @@ def test_u8_dispatch_raises_without_kernel_on_cuda(rng, monkeypatch):
         assert calls == [call] and out.shape == shape, (call, calls)
     calls.clear()
     two = np.floor(rng.rand(8, 9, 2) * 256).astype(np.uint8)
+    # past the device check (the card is the default and is asked for
+    # here): the plane count raises before any tensor is made on it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="1 or 3"):
         tbil.joint_bilateral_filter_u8(two, color, -1, 20.0, 3.0,
                                        device="cuda")
@@ -167,10 +226,16 @@ def test_kernel_wrapper_checks_and_cpu_dispatch(rng):
     np.testing.assert_array_equal(
         bilateral_gray_self(x, -1, 20.0, 2.0).numpy(),
         bilateral_gray_self_plain(x, -1, 20.0, 2.0).numpy())
+    levels = torch.from_numpy(_levels(rng, 1, 9, 10))
+    np.testing.assert_array_equal(
+        bilateral_gray_self(levels, -1, 20.0, 2.0).numpy(),
+        bilateral_gray_self_plain(levels, -1, 20.0, 2.0).numpy())
     assert bilateral_gray_self.launches == before
     with pytest.raises(ValueError):
         bilateral_gray_self(x[0])
     with pytest.raises(TypeError):
         bilateral_gray_self(x.double())
+    with pytest.raises(TypeError, match="uint8 levels or float32"):
+        bilateral_gray_self(levels.to(torch.int32))
     with pytest.raises(ValueError):
         bilateral_gray_self(x.transpose(1, 2))

@@ -159,7 +159,7 @@ def test_guided_u8_mono_src_matches_jax(rng):
     s = np.repeat(np.floor(rng.rand(30, 41, 1) * 256).astype(np.uint8), 3,
                   axis=-1)
     exp = jg.guided_filter_u8(g, s, 8, 3.0)
-    got = tg.guided_filter_u8(g, s, 8, 3.0)
+    got = tg.guided_filter_u8(g, s, 8, 3.0, device="cpu")
     _within_one_level(got, exp)
     assert (got == got[..., :1]).all()
 
@@ -173,8 +173,9 @@ def test_fast_guided_u8_matches_jax(gray_guide, rng):
     if gray_guide:
         g = g[..., 0]
     s = np.floor(rng.rand(97, 131) * 256).astype(np.uint8)
-    _within_one_level(tg.fast_guided_filter_u8(g, s, 8, 3.0, 4),
-                      jg.fast_guided_filter_u8(g, s, 8, 3.0, 4))
+    _within_one_level(
+        tg.fast_guided_filter_u8(g, s, 8, 3.0, 4, device="cpu"),
+        jg.fast_guided_filter_u8(g, s, 8, 3.0, 4))
     g3 = (g if g.ndim == 3 else np.repeat(g[..., None], 3, -1)).astype(
         np.float32)
     gp, sp = np.moveaxis(g3, -1, 0)[None], s[None, None].astype(np.float32)
@@ -188,8 +189,9 @@ def test_fast_guided_u8_matches_jax(gray_guide, rng):
 def test_fast_subsample_one_is_exact(rng):
     g = np.floor(rng.rand(20, 24, 3) * 256).astype(np.uint8)
     s = np.floor(rng.rand(20, 24) * 256).astype(np.uint8)
-    np.testing.assert_array_equal(tg.fast_guided_filter_u8(g, s, 4, 3.0, 1),
-                                  tg.guided_filter_u8(g, s, 4, 3.0))
+    np.testing.assert_array_equal(
+        tg.fast_guided_filter_u8(g, s, 4, 3.0, 1, device="cpu"),
+        tg.guided_filter_u8(g, s, 4, 3.0, device="cpu"))
 
 
 def test_wrapper_cpu_dispatch_and_checks(rng):

@@ -69,6 +69,34 @@ def test_bilateral_kernel_matches_plain(dev, shape, sigma_space):
     assert (got - exp).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("shape", [(2, 37, 70), (1, 20, 27), (1, 1, 40),
+                                   (3, 50, 33), (2, 64, 128)])
+@pytest.mark.parametrize("sigma_space", [22.0, 2.0])     # radius 33, 3
+def test_bilateral_kernel_u8_matches_plain(dev, shape, sigma_space):
+    """K2's uint8 form (cv2's table form) against its plain version on the
+    same levels: ragged tiles, a plane smaller than the radius, 1-wide and
+    whole tiles; within 1e-3, 1 uint8 level, equal on >= 99.9%."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randint(0, 256, size=shape).astype(
+        np.uint8)).to(dev)
+    before = bilateral_gray_self.launches
+    got = bilateral_gray_self(x, -1, 20.0, sigma_space)
+    assert bilateral_gray_self.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == shape
+    exp = bilateral_gray_self_plain(x, -1, 20.0, sigma_space)
+    d = (torch.round(got) - torch.round(exp)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
+def test_bilateral_kernel_refuses_other_dtypes(dev, dtype):
+    before = bilateral_gray_self.launches
+    with pytest.raises(TypeError, match="uint8 levels or float32"):
+        bilateral_gray_self(torch.zeros(1, 8, 8, dtype=dtype, device=dev))
+    assert bilateral_gray_self.launches == before
+
+
 def test_bilateral_kernel_refuses_too_large_a_radius(dev):
     x = torch.zeros(1, 8, 8, device=dev)
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -146,6 +174,28 @@ def test_gather_kernel_bitwise(dev):
     g1 = torch.full_like(l1, 2.0)
     want = scatter_pairs_plain(plane.shape, *idx, g1, torch.ones_like(l2))
     assert (leaf.grad - want).abs().max().item() <= 1e-6 * want.abs().max()
+
+
+def test_gather_kernel_one_allocation_and_failed_launch(dev, monkeypatch):
+    """K3's two outputs are the two rows of one allocation; a launch whose
+    entry point reports an error still raises, with the CUDA error's
+    text."""
+    from reflectance_filtering_tpu_torch.ops import _build
+    g = torch.Generator(device=dev).manual_seed(3)
+    plane = torch.rand(2, 16, 24, device=dev, generator=g)
+    idx = [torch.randint(0, n, (2, 50), device=dev, dtype=torch.int32,
+                         generator=g) for n in (16, 24, 16, 24)]
+    l1, l2 = gather_pairs(plane, *idx)
+    assert l1._base is not None and l1._base is l2._base
+    assert l2.data_ptr() == l1.data_ptr() + 4 * l1.numel()
+    _build.lib()
+    monkeypatch.setitem(_build._fns, "rf_whdr_gather",
+                        lambda *args: 1)      # cudaErrorInvalidValue
+    before = gather_pairs.launches
+    with pytest.raises(RuntimeError, match="rf_whdr_gather failed: CUDA "
+                                           "error 1"):
+        gather_pairs(plane, *idx)
+    assert gather_pairs.launches == before
 
 
 @pytest.mark.parametrize("border", ["reflect", "reflect101"])

@@ -55,6 +55,35 @@ def test_gather_wrapper_checks_and_cpu_dispatch(rng):
         gather_pairs(plane[:1], *idx)
 
 
+@pytest.mark.parametrize("case", ["plain", "requires_grad"])
+def test_gather_cpu_never_reaches_launch(case, rng, monkeypatch):
+    """CPU tensors take the indexing path, with and without autograd: the
+    kernel launcher is never reached, and the result is bitwise indexing
+    (its one-pass checks keep every raise: a non-tensor, a strided index
+    and an index on another device)."""
+    from reflectance_filtering_tpu_torch.ops import _build
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("_build.launch reached for CPU tensors")
+
+    monkeypatch.setattr(_build, "launch", no_launch)
+    plane = torch.rand(3, 9, 11, requires_grad=case == "requires_grad")
+    idx = [torch.from_numpy(i) for i in _indices(rng, 3, 40, 9, 11)]
+    got = gather_pairs(plane, *idx)
+    bi = torch.arange(3)[:, None]
+    for g, (y, x) in zip(got, ((idx[0], idx[1]), (idx[2], idx[3]))):
+        assert torch.equal(g, plane[bi, y.long(), x.long()])
+    if case == "requires_grad":
+        (got[0] + 2.0 * got[1]).sum().backward()
+        assert plane.grad.sum().item() == 3 * 40 * 3
+    with pytest.raises(TypeError):
+        gather_pairs(plane, idx[0].numpy(), *idx[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_pairs(plane, idx[0].t().contiguous().t(), *idx[1:])
+    with pytest.raises(ValueError, match="share a device"):
+        gather_pairs(plane, idx[0].to("meta"), *idx[1:])
+
+
 def _comps(seed, k, b, valid=None):
     """Synthetic blob; with ``valid`` each image keeps only that many rows
     and the rest are NaN-padded, as the dataset builder pads them."""
