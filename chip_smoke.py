@@ -8,8 +8,12 @@ Phases (any failure exits nonzero before the result line):
   1. device   the card's name and power limit (nvidia-smi), TF32 pinned off;
   2. build    nvcc builds every kernel from reflectance_filtering_tpu_torch/
               csrc/, one process per source (build seconds, the compiler's
-              register report), and K2's uint8 instantiation is checked to
-              issue no MUFU.EX2 (cuobjdump), the float one to issue some;
+              register report), and the machine code is read (cuobjdump):
+              K2's uint8 instantiation issues no MUFU.EX2, the float one
+              some; K1 issues HMMA .TF32 (3xTF32 on the tensor cores) and no
+              FFMA on a constant-bank weight (its instruction count is
+              printed); the F2F.F64.F32 conversions of K5's and K9's row
+              passes are counted per kernel;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
@@ -17,8 +21,10 @@ Phases (any failure exits nonzero before the result line):
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
               photo), float with a 3-plane joint), plus degenerate shapes,
               gated (K2 on each input as uint8 levels, cv2's table form,
-              and as float32, the exp form); the iterated guided chain K9 (3 iterations, r=45,
-              eps=3) on a 2160x3840 frame, C=1, with its guide statistics
+              and as float32, the exp form; K5 also at C=3 with r=300 and
+              r=1300, whose row blocks narrow to fit their staging, against
+              its plain version in float64); the iterated guided chain K9
+              (3 iterations, r=45, eps=3) on a 2160x3840 frame, C=1, with its guide statistics
               and one application held alone, on 2 x 480x512 with C=3, and
               on a 12x40 frame narrower than the window;
   3t. train   the training kernels against their plain versions on the
@@ -93,7 +99,11 @@ Phases (any failure exits nonzero before the result line):
               BF(reflectance, photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
-              calls, each K9 launch's ms, and K7's backward split by phase
+              calls, each K9 launch's ms, K9's six passes timed apart at 4K
+              and 8K with the column passes at the product's segments and
+              at 32, 64, 128 and 256 rows
+              (reflectance_filtering_tpu_torch/scripts/
+              measure_k9_passes.py), and K7's backward split by phase
               (reflectance_filtering_tpu_torch/scripts/
               measure_train_bwd_split.py: each variant's median ms, each
               phase's delta beside its bound, the product backward's time
@@ -116,13 +126,17 @@ forward and backward and K8: the 20 training steps; K9's two wrappers: the
 4K chain; K7's split: its run in phase 6), its measured error and
 times, and its bound: the larger of the bytes it must move over 3.35 TB/s
 and its operations, each kind over its rate: float32 operations over 66.9
-TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), expf over the SFU's 4.18 T/s
-(16 per SM per clock), shared-memory table loads over 8.36 T/s (32 four-byte
-words per SM per clock); the last line is {"ok": true, "device": {...}}.
+TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), float32 MACs of matrix
+products (K1, K7) as 3xTF32 over 494.7 / 6 T/s (three TF32 products a MAC
+on the tensor cores), float64 adds (the box sums of K4, K5, K9) over 16.7
+T/s (64 per SM per clock), expf over the SFU's 4.18 T/s (16 per SM per
+clock), shared-memory table loads over 8.36 T/s (32 four-byte words per SM
+per clock); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,20 +185,22 @@ SFU_S = 132 * 16 * 1.98e9                 # 4.18 T expf/s
 SMEM_LOADS_S = 132 * 32 * 1.98e9          # 8.36 T shared-memory loads/s
 
 
-def bound(flops=0.0, sfu=0.0, loads=0.0, nbytes=0.0):
+def bound(flops=0.0, sfu=0.0, loads=0.0, nbytes=0.0, tf32_macs=0.0,
+          f64_adds=0.0):
     """(least ms the card could take, "operations" or "bytes")."""
     from reflectance_filtering_tpu_torch.scripts.measure_train_bwd_split \
-        import F32_FLOP_S, HBM_BYTES_S
-    ops = max(flops / F32_FLOP_S, sfu / SFU_S, loads / SMEM_LOADS_S)
+        import F32_FLOP_S, F64_ADD_S, HBM_BYTES_S, TF32X3_MAC_S
+    ops = max(flops / F32_FLOP_S, sfu / SFU_S, loads / SMEM_LOADS_S,
+              tf32_macs / TF32X3_MAC_S, f64_adds / F64_ADD_S)
     mem = nbytes / HBM_BYTES_S
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
 def trunk_fmas(shape):
-    """FMAs per pixel of K7's forward (the backward's are the split
-    script's phase_fmas)."""
+    """(matrix-product MACs, fuse FMAs) per pixel of K7's forward and K1
+    (the backward's are the split script's phase_fmas)."""
     n, ci, f, cout = shape
-    return ci * f + (n - 1) * f * f + n * f * cout
+    return ci * f + (n - 1) * f * f, n * f * cout
 
 
 def training_set(seed, n, k, h=H, w=W):
@@ -586,7 +602,8 @@ def main():
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
-        measure_k2_table as k2_table, measure_train_bwd_split as split)
+        measure_k2_table as k2_table, measure_k9_passes as k9_passes,
+        measure_train_bwd_split as split)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         _check_indices)
     dev = torch.device("cuda", 0)
@@ -627,6 +644,36 @@ def main():
     print("K2 MUFU.EX2 instructions per instantiation:", ex2)
     check(ex2.get("uint8") == 0 and ex2.get("float32", 0) > 0,
           "K2's uint8 instantiation issues no MUFU.EX2 (no exp)")
+    # K1 runs its layers on the tensor cores (HMMA .TF32) and takes no
+    # weight as a constant-bank operand (c[0x3], the __constant__ bank)
+    k1 = [fn for fn in sass.split("Function : ")[1:]
+          if "cnn_fwd_kernel" in fn.split("\n", 1)[0]]
+    k1_lines = [line for fn in k1 for line in fn.splitlines()
+                if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
+    hmma = [line for line in k1_lines if "HMMA" in line]
+    const_fma = [line for line in k1_lines
+                 if "FFMA" in line and "c[0x3]" in line]
+    print("K1 cnn_fwd_kernel: {} instructions, {} HMMA ({}), {} FFMA on "
+          "c[0x3]".format(len(k1_lines), len(hmma), sorted({
+              line.split("HMMA", 1)[1].split()[0] for line in hmma}),
+                          len(const_fma)))
+    check(len(k1) == 1 and hmma and all("TF32" in line for line in hmma)
+          and not const_fma, "K1 issues HMMA .TF32 and no constant-bank "
+          "weight FFMA")
+    # the row passes of K5 and K9 convert each staged value to float64
+    # once: their F2F.F64.F32 per kernel (the staging's and the first
+    # window's, none per tap)
+    f2f = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        for kernel in ("gc_stats_rows", "gc_solve_cached_rows",
+                       "gf_apply_rows", "gf_solve_rows"):
+            if kernel in name:
+                tag = kernel + ("<{}>".format(name.split("ILi")[1][0])
+                                if "ILi" in name else "")
+                tag += " (K5)" if "guided_cu" in name else " (K9)"
+                f2f[tag] = fn.count("F2F.F64.F32")
+    print("F2F.F64.F32 per row-pass kernel:", f2f)
 
     phase("3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
@@ -733,19 +780,26 @@ def main():
         errs["box_filter"] = worst
 
         # K5: the gf path's shapes, C=1 (the served reflectance) and C=3,
-        # and strips narrower than the window
+        # strips narrower than the window, and C=3 at radii whose row
+        # blocks narrow to fit their staging in shared memory
         guide = imgs.flip(1).to(torch.float32).contiguous()
-        gf_in = {"C=1": (guide, r_u8[:, None].contiguous()),
+        gf_in = {"C=1": (guide, r_u8[:, None].contiguous(), GF_R),
                  "C=3": (guide, torch.from_numpy(photos(
-                     grng, B, H, W)).to(dev).to(torch.float32))}
-        for shape in ((40, 512), (12, 40)):
-            gf_in["{}x{}".format(*shape)] = tuple(
-                torch.from_numpy(np.floor(grng.rand(1, c, *shape) * 256)
-                                 .astype(np.float32)).to(dev) for c in (3, 1))
+                     grng, B, H, W)).to(dev).to(torch.float32), GF_R)}
+        for shape, c, radius in (((40, 512), 1, GF_R), ((12, 40), 1, GF_R),
+                                 ((12, 40), 3, 300), ((6, 1100), 3, 1300)):
+            gf_in["{}x{} C={}".format(*shape, c)] = tuple(
+                torch.from_numpy(np.floor(grng.rand(1, k, *shape) * 256)
+                                 .astype(np.float32)).to(dev)
+                for k in (3, c)) + (radius,)
         worst = 0.0
-        for name, (g_in, s_in) in gf_in.items():
-            qk = guided_filter_fused(g_in, s_in, GF_R, GF_EPS)
-            qp = guided_filter_fused_plain(g_in, s_in, GF_R, GF_EPS)
+        for name, (g_in, s_in, radius) in gf_in.items():
+            qk = guided_filter_fused(g_in, s_in, radius, GF_EPS)
+            if name in ("C=1", "C=3"):
+                qp = guided_filter_fused_plain(g_in, s_in, radius, GF_EPS)
+            else:   # float32's box partials would swamp a wide window
+                qp = guided_filter_fused_plain(
+                    g_in.double(), s_in.double(), radius, GF_EPS).float()
             torch.cuda.synchronize()
             err = (qk - qp).abs().max().item()
             if name in ("C=1", "C=3"):
@@ -753,7 +807,7 @@ def main():
             dl = (u8(qk) - u8(qp)).abs()
             eq = (dl == 0).float().mean().item()
             print("K5 {} r={} eps={}: max|d|={:.3e}  uint8 max {:.0f} level, "
-                  "{:.4%} equal".format(name, GF_R, GF_EPS, err,
+                  "{:.4%} equal".format(name, radius, GF_EPS, err,
                                         dl.max().item(), eq))
             check(err <= 0.05, "K5 {}: max|d| <= 0.05".format(name))
             check(dl.max().item() <= 1 and eq >= 0.999,
@@ -1322,16 +1376,15 @@ def main():
         big = box_in["1x2160x3840"][0]
         big_times = (time_ms(lambda: box_filter_planar(big, GF_R), 20),
                      time_ms(lambda: box_filter_planar_plain(big, GF_R), 5))
+        # gf_in's entries are (guide, src, radius); C=1 and C=3 at GF_R
         times["guided_filter"] = (
-            time_ms(lambda: guided_filter_fused(*gf_in["C=1"], GF_R,
-                                                GF_EPS), 20),
-            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=1"], GF_R,
-                                                      GF_EPS), 5))
+            time_ms(lambda: guided_filter_fused(*gf_in["C=1"], GF_EPS), 20),
+            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=1"], GF_EPS),
+                    5))
         c3_times = (
-            time_ms(lambda: guided_filter_fused(*gf_in["C=3"], GF_R,
-                                                GF_EPS), 10),
-            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=3"], GF_R,
-                                                      GF_EPS), 3))
+            time_ms(lambda: guided_filter_fused(*gf_in["C=3"], GF_EPS), 10),
+            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=3"], GF_EPS),
+                    3))
         gf_ms = time_ms(
             lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]), 10)
         # every instantiation of K6 at phase 3's 8 x 256x256 planes, the
@@ -1459,6 +1512,9 @@ def main():
                   mp / chain_ms[name] * 1e3, k5x3_ms[name],
                   mp / k5x3_ms[name] * 1e3))
     print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
+
+    phase("6. K9's passes apart, the column passes at each segment length")
+    k9_passes.print_table(k9_passes.measure(dev, args.seed))
 
     phase("6. K7's backward split by phase (TPU kernel 19), inputs made "
           "with numpy from --seed")
@@ -1623,39 +1679,64 @@ def main():
                if dy * dy + dx * dx <= bf_radius * bf_radius)
     print("bilateral disk at r={}: {} taps".format(bf_radius, taps))
     px, bf_px, t_px = B * H * W, BF_N * H * W, TB * H * W
-    check(tshape == split.SHAPE and t_px == split.PIXELS, "the training "
-          "kernels were timed at the split's shapes")
+    check(tshape == split.SHAPE == (5, 3, 32, 1) and t_px == split.PIXELS,
+          "the training kernels were timed at the split's shapes, K1's "
+          "network")
     c4_px = CHAIN_FRAMES["4K"][0] * CHAIN_FRAMES["4K"][1]
     nparams = k7.num_params(tshape)
+    # K1 and K7: the matrix products' MACs as 3xTF32, the fuse on the FP32
+    # pipe (split.matmul_ms); the FP32 pipe alone is printed beside
+    macs, fuse = trunk_fmas(split.SHAPE)
+    bwd_fuse = sum(split.phase_fuse_fmas().values())
+    bwd_macs = sum(split.phase_fmas().values()) - bwd_fuse
+    # box sums: 2 float64 adds per output and plane pass (a sliding window)
     bounds = {
-        "cnn_fwd": bound(flops=2 * 4352 * px, nbytes=16 * px),
+        "cnn_fwd": bound(tf32_macs=macs * px, flops=2 * fuse * px,
+                         nbytes=16 * px),
         # uint8 levels in (1 B), float32 out (4 B)
         "bilateral_gray_self": bound(flops=4 * taps * px, loads=taps * px,
                                      nbytes=5 * px),
         "whdr_gather": bound(nbytes=32 * B * K),
-        "box_filter": bound(nbytes=8 * px),
-        "guided_filter": bound(nbytes=20 * px),
+        "box_filter": bound(nbytes=8 * px, f64_adds=2 * 2 * px),
+        # K5 at C = 1: 13 moment planes and 4 of (a, b), each a column and
+        # a row pass
+        "guided_filter": bound(nbytes=20 * px, f64_adds=2 * 34 * px),
         "bilateral_joint": bound(flops=12 * taps * bf_px, sfu=taps * bf_px,
                                  nbytes=20 * bf_px),
         "bilateral_color_self": bound(flops=8 * taps * bf_px,
                                       loads=taps * bf_px, nbytes=24 * bf_px),
         "bilateral_packed_joint": bound(flops=4 * taps * bf_px,
                                         loads=taps * bf_px, nbytes=20 * bf_px),
-        "cnn_train_fwd": bound(flops=2 * trunk_fmas(tshape) * t_px,
+        "cnn_train_fwd": bound(tf32_macs=macs * t_px, flops=2 * fuse * t_px,
                                nbytes=16 * t_px + 4 * nparams),
         # the backward's FMAs per pixel: the split's phases summed
-        "cnn_train_bwd": bound(
-            flops=2 * sum(split.phase_fmas().values()) * t_px,
-            nbytes=16 * t_px + 8 * nparams),
+        "cnn_train_bwd": bound(tf32_macs=bwd_macs * t_px,
+                               flops=2 * bwd_fuse * t_px,
+                               nbytes=16 * t_px + 8 * nparams),
         "whdr_scatter": bound(nbytes=4 * t_px + 24 * TB * K),
-        # K9 on the 4K frame, as K5 counted by its bytes alone: the guide
-        # in (12 B/px) and 9 stat planes out; an application reads the
-        # stats, the guide and one src plane and writes one plane
-        "guide_stats": bound(nbytes=(12 + 36) * c4_px),
-        "guided_apply_cached": bound(nbytes=(36 + 12 + 4 + 4) * c4_px),
+        # K9 on the 4K frame: the guide in (12 B/px) and 9 stat planes
+        # out, 2 x 9 plane passes; an application reads the stats, the
+        # guide and one src plane and writes one plane, 2 x 4 + 2 x 4
+        # plane passes (66 in a 3x chain)
+        "guide_stats": bound(nbytes=(12 + 36) * c4_px,
+                             f64_adds=2 * 18 * c4_px),
+        "guided_apply_cached": bound(nbytes=(36 + 12 + 4 + 4) * c4_px,
+                                     f64_adds=2 * 16 * c4_px),
     }
+    f32_bounds = {
+        "cnn_fwd": split.matmul_ms(macs, fuse, px, tensor_cores=False),
+        "cnn_train_fwd": split.matmul_ms(macs, fuse, t_px,
+                                         tensor_cores=False),
+        "cnn_train_bwd": split.matmul_ms(bwd_macs, bwd_fuse, t_px,
+                                         tensor_cores=False)}
+    f32_bounds["cnn_train_bwd_split"] = f32_bounds["cnn_train_bwd"]
     # the split's full variant is the product backward: row 18's bound
     bounds["cnn_train_bwd_split"] = bounds["cnn_train_bwd"]
+    for name, ms in f32_bounds.items():
+        print("{}: bound {:.4f} ms with 3xTF32 tensor cores ({:.1%} of its "
+              "rate), {:.4f} ms on the FP32 pipe alone ({:.1%})".format(
+                  name, bounds[name][0], bounds[name][0] / times[name][0],
+                  ms, ms / times[name][0]))
     chain_bound = bound(nbytes=(12 + 4 + 4) * c4_px)
     print("{}x chain 4K bound {:.4f} ms ({}: guide and src in, q out; K9 "
           "{:.1%} of its rate)".format(CHAIN_ITERS, chain_bound[0],

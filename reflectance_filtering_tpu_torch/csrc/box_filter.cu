@@ -15,10 +15,11 @@
 // output): 16 bytes per pixel against 2(2r + 1) adds, so at r = 45 it is
 // near the line between the two.  The TPU kernel's doubling chain existed
 // to keep every partial bounded by w * max|x|; here the column pass slides
-// a float64 sum that restarts every 32 rows and the row pass sums its
+// a float64 sum that restarts every 32-128 rows and the row pass sums its
 // window afresh from shared memory, also in float64, so the result is the
 // float32 rounding of a nearly exact sum (see box_common.cuh for the
-// layout of both passes).
+// layout of both passes; the column pass's segment, rf::col_seg, is shared
+// with K5 and K9).
 #include "box_common.cuh"
 
 namespace {
@@ -52,13 +53,15 @@ extern "C" int rf_box_filter(const float* x, float* out, float* tmp, int b,
                              int h, int w, int radius, int reflect101,
                              int normalize, cudaStream_t stream) {
   const bool r101 = reflect101 != 0;
-  int smem = 0;
-  cudaError_t err = rf::row_smem(box_row_kernel, 1, radius, &smem);
+  const int smem =
+      (rf::kRowTile + 2 * radius) * static_cast<int>(sizeof(float));
+  cudaError_t err = rf::smem_limit(box_row_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int seg = rf::col_seg(b, h, w);
   const dim3 col_grid((w + rf::kColThreads - 1) / rf::kColThreads,
-                      (h + rf::kColSeg - 1) / rf::kColSeg, b);
-  rf::col_sum_kernel<<<col_grid, rf::kColThreads, 0, stream>>>(x, tmp, h, w,
-                                                               radius, r101);
+                      (h + seg - 1) / seg, b);
+  rf::col_sum_kernel<<<col_grid, rf::kColThreads, 0, stream>>>(
+      x, tmp, h, w, radius, r101, seg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const double wd = 2.0 * radius + 1.0;

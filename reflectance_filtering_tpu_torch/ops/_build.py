@@ -58,6 +58,10 @@ _SIGNATURES = {
     # stats, guide, src, out, mom, ab, n, c, h, w, radius, stream
     "rf_guided_apply_cached": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P],
+    # pass, seg, stats, guide, src, out, mom, ab, n, c, h, w, radius, eps,
+    # stream
+    "rf_guided_chain_pass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _P],
     # joint, src, out, n, cj, cs, h, w, self_guided, u8, radius, gcc, gsc,
     # stream
     "rf_bilateral_joint": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -3,10 +3,15 @@ PyTorch version and its wrapper.
 
 Port of reflectance_filtering_tpu/ops/cnn_pallas.py
 (``reflectance_cnn_pallas_planar`` and ``reflectance_cnn_pallas``).  The
-TPU kernel's ``pack_weights`` split every weight into bf16 pieces for the
-matrix unit; the Hopper kernel runs plain f32 FMAs, so its "packing" is
-only a flattening of the module's ``[in, out]`` matrices into the order
-the kernel reads (see the layout note in csrc/cnn_fwd.cu).
+kernel is bound by its matrix products (4,192 MACs a pixel), so it runs
+layers 1-4 on the tensor cores as 3xTF32 (``mma.sync`` m16n8k8: each f32
+operand split into a TF32 hi and lo, hi.hi + hi.lo + lo.hi accumulated in
+f32), which keeps about f32's accuracy, as the TPU kernel's bf16 pieces
+did on its matrix unit; one TF32 product would keep ~3 decimal digits,
+too few for the floor(r * 255) byte gate.  Layer 0 and the 160 -> 1 fuse
+are f32 FMAs.  The kernel splits and reorders the weights itself into
+shared memory, so :func:`pack_weights` is only a flattening of the
+module's ``[in, out]`` matrices (see the notes in csrc/cnn_fwd.cu).
 """
 from __future__ import annotations
 

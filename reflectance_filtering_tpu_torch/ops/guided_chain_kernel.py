@@ -84,7 +84,7 @@ def guide_stats(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
         return guide_stats_plain(guide, radius, eps)
     _build.require_cuda(guide, "guide_stats")
     n, _, h, w = guide.shape
-    check_grid("guide_stats", n, h, 1)
+    check_grid("guide_stats", n, h, w, 1)
     stats = torch.empty((n, STAT_PLANES, h, w), dtype=torch.float32,
                         device=guide.device)
     if stats.numel():
@@ -113,7 +113,7 @@ def guided_apply_cached(stats: torch.Tensor, guide: torch.Tensor,
     _build.require_cuda(guide, "guided_apply_cached")
     n, c, h, w = src.shape
     group = min(c, 3)
-    check_grid("guided_apply_cached", n, h, 4 * group)
+    check_grid("guided_apply_cached", n, h, w, 4 * group)
     if not src.numel():
         return torch.empty_like(src)
     mom = torch.empty((n, 4 * group, h, w), dtype=torch.float32,

@@ -24,6 +24,7 @@ from . import _build
 from .box_kernel import box_filter_planar_plain
 
 _GRID_LIMIT = 65535
+_INT_LIMIT = 2 ** 31 - 1
 _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 Box = Callable[[torch.Tensor, int], torch.Tensor]
@@ -129,13 +130,17 @@ def check_guided(guide: torch.Tensor, radius: int, others=()) -> None:
         raise ValueError("radius must be >= 0, got {}".format(radius))
 
 
-def check_grid(wrapper: str, n: int, h: int, planes: int) -> None:
-    """Raise unless n images of h rows with ``planes`` planes each fit the
-    kernels' grid (n, h and n * planes at most 65,535)."""
-    if n > _GRID_LIMIT or h > _GRID_LIMIT or n * planes > _GRID_LIMIT:
-        raise ValueError("{}: {} images of {} rows with {} planes each "
-                         "exceed the kernel's grid limit of {}".format(
-                             wrapper, n, h, planes, _GRID_LIMIT))
+def check_grid(wrapper: str, n: int, h: int, w: int, planes: int) -> None:
+    """Raise unless n images of h x w with ``planes`` planes in their
+    widest column pass fit the kernels' grids and int arguments: n, h and
+    n * planes at most 65,535 (a row pass's grid is (columns, h, n), a
+    column pass's (columns, at most h, n * planes)), w below 2^31."""
+    if (n > _GRID_LIMIT or h > _GRID_LIMIT or n * planes > _GRID_LIMIT
+            or w > _INT_LIMIT):
+        raise ValueError("{}: {} images of {}x{} with {} planes each "
+                         "exceed the kernel's grid limit of {} (or a width "
+                         "of 2^31)".format(wrapper, n, h, w, planes,
+                                           _GRID_LIMIT))
 
 
 def by_channel_groups(src: torch.Tensor, launch) -> torch.Tensor:
@@ -166,7 +171,7 @@ def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
     _build.require_cuda(guide, "guided_filter_fused")
     n, c, h, w = src.shape
     group = min(c, 3)
-    check_grid("guided_filter_fused", n, h, 4 * group)
+    check_grid("guided_filter_fused", n, h, w, 4 * group)
     if not src.numel():
         return torch.empty_like(src)
     mom = torch.empty((n, 9 + 4 * group, h, w), dtype=torch.float32,

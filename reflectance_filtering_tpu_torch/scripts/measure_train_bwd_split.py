@@ -22,7 +22,11 @@ Each is timed by CUDA events around single launches, the median of ITERS
 launches after WARMUP rounds, the variants taken in turns; the product
 backward (``trunk_backward``) is timed in the same turns.  A row's stage is
 the difference to the row above: the phase it removed, beside that phase's
-bound (its float32 FMAs at 66.9 TFLOP/s).  The registers and spills of
+bound: its matrix products' MACs as 3xTF32 on the tensor cores (3 TF32
+products per float32 MAC at 494.7 TFLOP/s), the fuse's 160-wide products
+with one output on the FP32 pipe (66.9 TFLOP/s, FMA = 2), the larger of
+the two; beside it, the bound with every FMA on the FP32 pipe, the figure
+earlier measurements were read against.  The registers and spills of
 each instantiation come from the build's ptxas report.
 
 Needs a CUDA device: without one it exits nonzero and builds nothing.
@@ -48,6 +52,9 @@ SHAPE = (5, 3, 32, 1)                      # (n, ci, f, cout): the flagship
 ITERS, WARMUP = 20, 3
 # the card's peak rates for the bounds (H100 SXM)
 F32_FLOP_S = 132 * 128 * 2 * 1.98e9        # 66.9 TFLOP/s, FMA = 2
+TF32_FLOP_S = 494.7e12                     # dense tensor cores, MAC = 2
+TF32X3_MAC_S = TF32_FLOP_S / (2 * 3)       # float32 MACs as 3 TF32 products
+F64_ADD_S = 132 * 64 * 1.98e9              # 16.7 T float64 adds/s
 HBM_BYTES_S = 3.35e12
 # the variants in the JAX script's order and names (its floor is
 # "empty(DMA floor)"), then the port's own row, the block sum
@@ -69,12 +76,38 @@ def phase_fmas() -> Dict[str, int]:
             "head": n * f * cout}
 
 
-def phase_bounds_ms() -> Dict[str, float]:
-    """Each phase's least time on the card at PIXELS, and their total, in
-    ms."""
-    out = {name: 2.0 * fmas * PIXELS / F32_FLOP_S * 1e3
+def phase_fuse_fmas() -> Dict[str, int]:
+    """The part of each phase's FMAs per pixel that is a product with the
+    fuse's cout-wide side (W_f g in the rematerialisation, dW_fuse in the
+    head): matrix-vector work, counted on the FP32 pipe."""
+    n, _, f, cout = SHAPE
+    return {"rematerialisation": n * f * cout, "chain": 0, "dW": 0,
+            "head": n * f * cout}
+
+
+def matmul_ms(macs: float, fuse_fmas: float = 0.0, pixels: int = PIXELS,
+              tensor_cores: bool = True) -> float:
+    """The least ms for ``macs`` float32 MACs of matrix products and
+    ``fuse_fmas`` FMAs of fuse products per pixel, at ``pixels`` pixels:
+    the matrix products as 3xTF32 on the tensor cores beside the fuse on
+    the FP32 pipe (the two run at once, so the larger); with
+    ``tensor_cores=False`` all of it on the FP32 pipe."""
+    if not tensor_cores:
+        return 2.0 * (macs + fuse_fmas) * pixels / F32_FLOP_S * 1e3
+    return max(macs * pixels / TF32X3_MAC_S,
+               2.0 * fuse_fmas * pixels / F32_FLOP_S) * 1e3
+
+
+def phase_bounds_ms(tensor_cores: bool = True) -> Dict[str, float]:
+    """Each phase's least time on the card at PIXELS, and the total (the
+    two pipes' sums, the larger), in ms; ``tensor_cores=False`` gives the
+    FP32-pipe figure."""
+    fuse = phase_fuse_fmas()
+    out = {name: matmul_ms(fmas - fuse[name], fuse[name],
+                           tensor_cores=tensor_cores)
            for name, fmas in phase_fmas().items()}
-    out["total"] = sum(out.values())
+    out["total"] = matmul_ms(sum(phase_fmas().values()) - sum(fuse.values()),
+                             sum(fuse.values()), tensor_cores=tensor_cores)
     return out
 
 
@@ -165,8 +198,10 @@ def print_table(result, registers=None) -> Dict[str, float]:
     print("K7 backward split, (n, ci, f, cout) = {}, P = {}, {} blocks; "
           "median ms of single launches (CUDA events)".format(
               SHAPE, PIXELS, result["blocks"]))
-    print("{:<18} {:>9}  {:<18} {:>9} {:>9} {:>9}".format(
-        "variant", "ms", "stage", "delta ms", "bound ms", "of rate"))
+    f32 = phase_bounds_ms(tensor_cores=False)
+    print("{:<18} {:>9}  {:<18} {:>9} {:>9} {:>9} {:>9}".format(
+        "variant", "ms", "stage", "delta ms", "bound ms", "of rate",
+        "FP32 ms"))
     deltas = {}
     for i, row in enumerate(ROWS[:5]):
         stage = STAGES[i]
@@ -175,9 +210,9 @@ def print_table(result, registers=None) -> Dict[str, float]:
             continue
         delta = ms[ROWS[i - 1]] - ms[row]
         deltas[stage] = delta
-        print("{:<18} {:9.4f}  {:<18} {:9.4f} {:9.4f} {:8.1%}".format(
+        print("{:<18} {:9.4f}  {:<18} {:9.4f} {:9.4f} {:8.1%} {:9.4f}".format(
             row, ms[row], stage, delta, bounds[stage],
-            bounds[stage] / delta if delta > 0 else float("nan")))
+            bounds[stage] / delta if delta > 0 else float("nan"), f32[stage]))
     sum_bound = block_sum_bound_ms(result["blocks"])
     print("{:<18} {:9.4f}  {:<18} {:>9} {:9.4f} {:8.1%}".format(
         "block sum", ms["block sum"], "(alone)", "", sum_bound,
@@ -185,9 +220,11 @@ def print_table(result, registers=None) -> Dict[str, float]:
     print("floor without the block sum: {:.4f} ms".format(
         ms["empty(DMA floor)"] - ms["block sum"]))
     print("product backward (rf_cnn_train_bwd): {:.4f} ms, full variant "
-          "{:.4f} ms, bound {:.4f} ms ({:.1%} of its rate)".format(
+          "{:.4f} ms, bound {:.4f} ms ({:.1%} of its rate; on the FP32 pipe "
+          "{:.4f} ms, {:.1%})".format(
               result["product_ms"], ms["full"], bounds["total"],
-              bounds["total"] / result["product_ms"]))
+              bounds["total"] / result["product_ms"], f32["total"],
+              f32["total"] / result["product_ms"]))
     rates = {stage: bounds[stage] / d for stage, d in deltas.items() if d > 0}
     for stage in sorted(rates, key=rates.get):
         print("  {:<18} {:.4f} ms against its bound {:.4f} ms: {:.1%} of "

@@ -212,6 +212,29 @@ def test_wrapper_cpu_dispatch_and_checks(rng):
         guided_filter_fused(g, s, -1, 3.0)
 
 
+@pytest.mark.parametrize("n,h,w,planes,ok", [
+    (65535, 65535, 1, 1, True),        # y and z at the limit
+    (65536, 1, 1, 1, False),           # the row pass's z = n
+    (1, 65536, 1, 1, False),           # the row pass's y = h
+    (16383, 8, 8, 4, True),            # the (a, b) column sums' z = 4n
+    (16384, 8, 8, 4, False),
+    (5461, 8, 8, 12, True),            # C = 3: 12 planes
+    (5462, 8, 8, 12, False),
+    (1, 4, 2 ** 31 - 1, 1, True),      # the widest int w
+    (1, 4, 2 ** 31, 1, False),         # w past the kernels' int
+])
+def test_check_grid_at_the_geometrys_limits(n, h, w, planes, ok):
+    """check_grid refuses exactly the shapes whose grids exceed CUDA's
+    limits: a row pass's y = h and z = n, a column pass's z = n * planes
+    (its y, ceil(h / segment), is at most h), and a w past int."""
+    from reflectance_filtering_tpu_torch.ops.guided_kernel import check_grid
+    if ok:
+        check_grid("t", n, h, w, planes)
+    else:
+        with pytest.raises(ValueError, match="grid limit"):
+            check_grid("t", n, h, w, planes)
+
+
 def _jax_gf(params, img):
     """The JAX package's gf pipeline, XLA form (utils/serving.py:98-116),
     on seeded weights."""

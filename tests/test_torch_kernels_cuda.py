@@ -476,3 +476,96 @@ def test_cascade_through_apply_network(dev):
         assert b.abs().max().item() > 0, (name, part)
         assert (a - b).abs().max().item() <= 2e-4 * b.abs().max().item(), (
             name, part)
+
+
+@pytest.mark.parametrize("batch", [1, 33])
+@pytest.mark.parametrize("hw", [1, 255, 4099, 65536])
+@pytest.mark.parametrize("srgb_input", [True, False])
+def test_cnn_kernel_3xtf32_shapes_and_repeat(dev, batch, hw, srgb_input):
+    """K1 on the tensor cores (3xTF32) at ragged and whole 32-pixel steps,
+    one image and more images than one wave of the persistent grid takes
+    at once: within 1e-5 of its plain version, <= 1 level of floor(r *
+    255), and bitwise equal on a second launch."""
+    net = ReflectanceNet()
+    net.load_state_dict(params_from_numpy(seeded_reference_params(6)))
+    w = pack_weights(net.to(dev))
+    x = torch.rand(batch, 3, hw, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(hw + batch))
+    before = reflectance_cnn.launches
+    got = reflectance_cnn(x, w, srgb_input=srgb_input)
+    again = reflectance_cnn(x, w, srgb_input=srgb_input)
+    assert reflectance_cnn.launches == before + 2
+    exp = reflectance_cnn_plain(x, w, srgb_input=srgb_input)
+    assert got.shape == (batch, hw)
+    assert (got - exp).abs().max().item() <= 1e-5
+    assert (torch.floor(got * 255) - torch.floor(exp * 255)).abs().max() <= 1
+    assert torch.equal(got, again)
+
+
+# (n, c, h, w, radius): runs of 33 outputs and row blocks of 1056 columns
+# cut at other widths, windows wider than the frame (a run's window
+# reflects at both borders), r = 0 and 1, C = 1, 2, 3; radii whose
+# leaving and entering taps are staged apart (2r + 1 > the block's
+# columns), and whose staging narrows the block to fit its shared memory
+# (K5's 21 planes at C = 3: 29 runs at r = 200, 20 at r = 1300)
+ROW_PASS_CASES = [(1, 1, 12, 40, 45), (1, 2, 12, 40, 0), (1, 3, 12, 40, 100),
+                  (2, 1, 17, 1057, 45), (1, 2, 9, 2113, 1),
+                  (1, 3, 5, 1100, 100), (1, 1, 33, 67, 0),
+                  (2, 3, 7, 1056, 45), (1, 1, 3, 250, 100),
+                  (1, 3, 480, 512, 200), (1, 3, 12, 40, 300),
+                  (1, 3, 6, 1100, 200), (1, 3, 5, 1100, 1300),
+                  (1, 1, 4, 2200, 700)]
+
+
+@pytest.mark.parametrize("n,c,h,w,radius", ROW_PASS_CASES)
+def test_sliding_row_passes_match_plain(dev, n, c, h, w, radius):
+    """K9's chain and K5 on the sliding row passes against their plain
+    versions in float64 (the chain's float and uint8 gate; the statistics
+    within 1e-3 of each plane's largest magnitude; K5 within 1 uint8 level
+    and 0.05), each launched twice and held bitwise equal.  The reference
+    is float64 because at r = 1 the plain float32 box's block partials
+    (up to 512 x 255^2) swamp a 3x3 window's moments: 0.2 off after three
+    iterations on these inputs, where the kernel's float64 sums stay within
+    the gate."""
+    rng = np.random.RandomState(12)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, c, h, w) * 256).astype(
+        np.float32)).to(dev)
+    g64, s64 = g.double(), s.double()
+    chain = k9.guided_filter_chain(g, s, radius, 3.0, 3)
+    assert torch.equal(chain, k9.guided_filter_chain(g, s, radius, 3.0, 3))
+    assert _within_gate(chain, k9.guided_filter_chain_plain(
+        g64, s64, radius, 3.0, 3).float())
+    st = k9.guide_stats(g, radius, 3.0)
+    stp = k9.guide_stats_plain(g64, radius, 3.0)
+    for k in range(k9.STAT_PLANES):
+        scale = stp[:, k].abs().max().item()
+        assert (st[:, k] - stp[:, k]).abs().max().item() <= 1e-3 * scale, k
+    got = guided_filter_fused(g, s, radius, 3.0)
+    assert torch.equal(got, guided_filter_fused(g, s, radius, 3.0))
+    exp = guided_filter_fused_plain(g64, s64, radius, 3.0).float()
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (got - exp).abs().max().item() <= 0.05
+
+
+def test_chain_passes_alone_are_the_entry_points(dev):
+    """rf_guided_chain_pass (the passes timed apart): passes 0-5 at the
+    product's segment are bitwise the two entry points; at the other
+    segments tried within 1e-3; a pass or segment out of range raises."""
+    from reflectance_filtering_tpu_torch.scripts import measure_k9_passes
+    buf = measure_k9_passes.make_buffers(dev, 3, 300, 1500)
+    stats = k9.guide_stats(buf["guide"], measure_k9_passes.RADIUS,
+                           measure_k9_passes.EPS)
+    want = k9.guided_apply_cached(stats, buf["guide"], buf["src"],
+                                  measure_k9_passes.RADIUS)
+    for seg in measure_k9_passes.SEGS:
+        for p in range(6):
+            measure_k9_passes.run_pass(p, seg, buf)
+        if seg == 0:                     # the product's segments
+            assert torch.equal(buf["stats"], stats)
+            assert torch.equal(buf["out"], want)
+        assert (buf["out"] - want).abs().max().item() <= 1e-3
+    for p, seg in ((6, 32), (0, -1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            measure_k9_passes.run_pass(p, seg, buf)

@@ -192,7 +192,8 @@ def test_phase_count_is_what_its_variant_drops(inputs, stage):
 
 def test_phase_counts_sum_to_the_backward():
     """The phases add up to the full variant's count: 12,800 FMAs per
-    pixel, the head dW_fuse's 160 alone; 0.5015 ms at 20 x 256x256."""
+    pixel, the head dW_fuse's 160 alone; 0.5015 ms at 20 x 256x256 on the
+    FP32 pipe, 0.1984 ms with the matrix products as 3xTF32."""
     fmas = split.phase_fmas()
     assert fmas == {"rematerialisation": 4352, "chain": 4096, "dW": 4192,
                     "head": 160}
@@ -200,10 +201,34 @@ def test_phase_counts_sum_to_the_backward():
                   for t in split.make_inputs("cpu"))
     assert _plain_fmas_per_pixel(0, x, g, flat) == sum(fmas.values()) == 12800
     assert _plain_fmas_per_pixel(4, x, g, flat) == 0
+    f32 = split.phase_bounds_ms(tensor_cores=False)
+    assert round(f32["rematerialisation"], 4) == 0.1705
+    assert round(f32["head"], 5) == 0.00627
+    assert round(f32["total"], 4) == 0.5015
     bounds = split.phase_bounds_ms()
-    assert round(bounds["rematerialisation"], 4) == 0.1705
-    assert round(bounds["head"], 5) == 0.00627
-    assert round(bounds["total"], 4) == 0.5015
+    assert round(bounds["rematerialisation"], 4) == 0.0666
+    assert round(bounds["chain"], 4) == 0.0651
+    assert bounds["head"] == f32["head"]          # matrix-vector: FP32
+    assert round(bounds["total"], 4) == 0.1984
+
+
+def test_bound_rates():
+    """The tensor-core term: 494.7 TFLOP/s dense TF32, three products per
+    float32 MAC (82.45 T MAC/s, 2.47x the FP32 pipe's 33.45 T FMA/s); the
+    float64-add term: 132 SMs x 64 lanes x 1.98 GHz = 16.7 T/s."""
+    assert split.TF32X3_MAC_S == pytest.approx(494.7e12 / 6)
+    assert split.TF32X3_MAC_S / (split.F32_FLOP_S / 2) == pytest.approx(
+        2.4646, abs=1e-4)
+    assert split.F64_ADD_S == pytest.approx(16.72704e12)
+    # K1 at 32 x 256x256: 4,192 matrix MACs a pixel as 3xTF32 beside the
+    # 160 fuse FMAs on the FP32 pipe; all 4,352 on the FP32 pipe before
+    px = 32 * 256 * 256
+    assert round(split.matmul_ms(4192, 160, px), 4) == 0.1066
+    assert round(split.matmul_ms(4192, 160, px, tensor_cores=False),
+                 4) == 0.2728
+    # the fuse alone can bind: then the FP32 pipe's term is the bound
+    assert split.matmul_ms(1, 10 ** 6, px) == pytest.approx(
+        2e6 * px / split.F32_FLOP_S * 1e3)
 
 
 def test_make_inputs_is_seeded():
