@@ -10,8 +10,10 @@ Phases (any failure exits nonzero before the result line):
               csrc/, one process per source (build seconds, the compiler's
               register report), and the machine code is read (cuobjdump):
               K2's uint8 instantiation issues no MUFU.EX2, the float one
-              some; K1 issues HMMA .TF32 (3xTF32 on the tensor cores) and no
-              FFMA on a constant-bank weight (its instruction count is
+              some, and so do K6's five uint8 and four float ones; K1 issues
+              HMMA .TF32 (3xTF32 on the tensor cores) and no FFMA on a
+              constant-bank weight (its instruction count is printed), and
+              K7's backward HMMA .TF32 (each instantiation's HMMA count
               printed); the F2F.F64.F32 conversions of K5's and K9's row
               passes are counted per kernel;
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -19,7 +21,8 @@ Phases (any failure exits nonzero before the result line):
               also on one 2160x3840 plane and on the guided CLI's
               --subsample=4 planes; the joint bilateral K6 at the JAX
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
-              photo), float with a 3-plane joint), plus degenerate shapes,
+              photo), both in cv2's table form, float with a 3-plane joint),
+              plus degenerate shapes,
               gated (K2 on each input as uint8 levels, cv2's table form,
               and as float32, the exp form; K5 also at C=3 with r=300 and
               r=1300, whose row blocks narrow to fit their staging, against
@@ -95,7 +98,8 @@ Phases (any failure exits nonzero before the result line):
               medians of 7; K2 on uint8 levels and on float32, and its range
               table in the product's layout against two others,
               reflectance_filtering_tpu_torch/scripts/
-              measure_k2_table.py), both slices' images/s, the MP/s of the color-self and
+              measure_k2_table.py; K6's uint8 range table likewise,
+              measure_k6_table.py), both slices' images/s, the MP/s of the color-self and
               BF(reflectance, photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
@@ -602,7 +606,8 @@ def main():
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
-        measure_k2_table as k2_table, measure_k9_passes as k9_passes,
+        measure_k2_table as k2_table, measure_k6_table as k6_table,
+        measure_k9_passes as k9_passes,
         measure_train_bwd_split as split)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         _check_indices)
@@ -644,6 +649,20 @@ def main():
     print("K2 MUFU.EX2 instructions per instantiation:", ex2)
     check(ex2.get("uint8") == 0 and ex2.get("float32", 0) > 0,
           "K2's uint8 instantiation issues no MUFU.EX2 (no exp)")
+    # K6's uint8 form is cv2's table form too: none in any of its five
+    # instantiations; its float form (TPU kernel 7) pays one per tap
+    k6_ex2 = {fn.split("\n", 1)[0].strip(): fn.count("MUFU.EX2")
+              for fn in sass.split("Function : ")[1:]
+              if "bilateral_joint_u8_kernel" in fn.split("\n", 1)[0]
+              or "bilateral_joint_float_kernel" in fn.split("\n", 1)[0]}
+    k6_u8_ex2 = [n for name, n in k6_ex2.items() if "u8_kernel" in name]
+    k6_f_ex2 = [n for name, n in k6_ex2.items() if "float_kernel" in name]
+    print("K6 MUFU.EX2 per instantiation: uint8 form {}, float form "
+          "{}".format(k6_u8_ex2, k6_f_ex2))
+    check(len(k6_u8_ex2) == 5 and not any(k6_u8_ex2)
+          and len(k6_f_ex2) == 4 and all(k6_f_ex2),
+          "K6's five uint8 instantiations issue no MUFU.EX2 (no exp), its "
+          "four float ones some")
     # K1 runs its layers on the tensor cores (HMMA .TF32) and takes no
     # weight as a constant-bank operand (c[0x3], the __constant__ bank)
     k1 = [fn for fn in sass.split("Function : ")[1:]
@@ -660,6 +679,28 @@ def main():
     check(len(k1) == 1 and hmma and all("TF32" in line for line in hmma)
           and not const_fma, "K1 issues HMMA .TF32 and no constant-bank "
           "weight FFMA")
+    # K7's backward runs its matrix products on the tensor cores too: every
+    # instantiation of its product mask (dW in registers and in the row)
+    # issues HMMA .TF32; its forward, not yet redesigned, issues none
+    k7_hmma = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        m = re.search(r"trunk_(bwd|fwd)_kernel(?:ILi(\d+)ELb([01])E)?", name)
+        if m:
+            lines = [line for line in fn.splitlines()
+                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
+            tag = m.group(1) + ("" if m.group(2) is None else "<{}, {}>".format(
+                m.group(2), "registers" if m.group(3) == "1" else "row"))
+            k7_hmma[tag] = (len(lines), [line for line in lines
+                                         if "HMMA" in line])
+    print("K7 HMMA per instantiation (instructions, HMMA): {}".format(
+        {tag: (n, len(h)) for tag, (n, h) in sorted(k7_hmma.items())}))
+    product = [h for tag, (_, h) in k7_hmma.items()
+               if tag.startswith("bwd<15,")]
+    check(len(product) == 2 and all(product)
+          and all("TF32" in line for h in product for line in h)
+          and not k7_hmma.get("fwd", (0, []))[1],
+          "K7's backward issues HMMA .TF32 (3xTF32 on the tensor cores)")
     # the row passes of K5 and K9 convert each staged value to float64
     # once: their F2F.F64.F32 per kernel (the staging's and the first
     # window's, none per tap)
@@ -915,7 +956,8 @@ def main():
                 qk, j, s = k6_run(instance, planes)
                 jj = j[:K6_SUBSET]
                 qp = bilateral_joint_plain(
-                    jj, jj if s is j else s[:K6_SUBSET], bf_radius, gcc, gsc)
+                    jj, jj if s is j else s[:K6_SUBSET], bf_radius, gcc, gsc,
+                    u8=instance[3])
                 qk = qk[:K6_SUBSET]
                 torch.cuda.synchronize()
                 err = (qk - qp).abs().max().item()
@@ -1367,6 +1409,12 @@ def main():
         k2_tables = k2_table.measure(dict(
             {"served levels": r_levels},
             **k2_table.make_inputs(dev, args.seed)))
+        # K6's range table in three layouts, on phase 3's photos by
+        # themselves and guiding the reflectance levels
+        k6_tables = k6_table.measure({
+            "color-self": (k6_planes[(True, 3)], None),
+            "BF(reflectance, photo)": (k6_planes[(True, 3)],
+                                       k6_planes[(True, 1)])})
         slice_ms = time_ms(
             lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]), 10)
         planes = box_in["32x256x256"][0]
@@ -1398,8 +1446,9 @@ def main():
             _, j, s = k6_run(instance, k6_planes)
             k6_times[instance] = (
                 k6_ms[instance],
-                time_ms(lambda: bilateral_joint_plain(j, s, bf_radius, gcc,
-                                                      gsc), 1, warmup=0))
+                time_ms(lambda: bilateral_joint_plain(
+                    j, s, bf_radius, gcc, gsc, u8=instance[3]), 1,
+                    warmup=0))
         for name, instance in K6_MAIN.items():
             times[name] = k6_times[instance]
         # the training kernels at the flagship's 20 x 256x256; the backward
@@ -1479,6 +1528,7 @@ def main():
           "{:.4f} ms (the row above: uint8 levels)".format(B, H, W,
                                                           *k2_float_times))
     k2_table.print_table(k2_tables)
+    k6_table.print_table(k6_tables)
     print("box_filter 1x2160x3840 r={}: kernel {:.4f} ms, plain {:.4f} "
           "ms".format(GF_R, *big_times))
     print("guided_filter C=3 32x256x256 r={}: kernel {:.4f} ms, plain "

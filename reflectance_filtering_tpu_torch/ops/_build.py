@@ -62,10 +62,10 @@ _SIGNATURES = {
     # stream
     "rf_guided_chain_pass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P],
-    # joint, src, out, n, cj, cs, h, w, self_guided, u8, radius, gcc, gsc,
-    # stream
-    "rf_bilateral_joint": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                           _F, _P],
+    # joint, src, out, tables, n, cj, cs, h, w, self_guided, u8, radius,
+    # gcc, gsc, stream
+    "rf_bilateral_joint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _P],
     # y1, x1, y2, x2, g1, g2, dplane, b, h, w, k, stream
     "rf_whdr_scatter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # n, ci, f, cout, p, out[2] (no stream: a host-side query)
@@ -153,6 +153,26 @@ def _build(out_dir: str, so_path: str) -> None:
 def build_dir() -> str:
     """Where the library of the current sources (and its build.log) lives."""
     return os.path.join(BUILD_ROOT, _digest(_sources()))
+
+
+def script_library(source: str, headers, stem: str) -> ctypes.CDLL:
+    """A measurement script's own library: ``source`` (a .cu beside the
+    script, including ``headers`` of csrc/) built with the product's flags
+    into ``BUILD_ROOT/<stem>_<hash>/lib<stem>.so`` at first use, its
+    compiler output in build.log there."""
+    deps = [source] + [os.path.join(CSRC_DIR, name) for name in headers]
+    out_dir = os.path.join(BUILD_ROOT, "{}_{}".format(stem, _digest(deps)))
+    so_path = os.path.join(out_dir, "lib{}.so".format(stem))
+    if not os.path.isfile(so_path):
+        os.makedirs(out_dir, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so_path,
+                               source], capture_output=True, text=True)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on {}:\n{}".format(
+                source, (proc.stdout + proc.stderr)[-4000:]))
+    return ctypes.CDLL(so_path)
 
 
 def lib() -> ctypes.CDLL:

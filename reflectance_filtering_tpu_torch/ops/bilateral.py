@@ -71,14 +71,16 @@ def opencv_bilateral_params(d: int, sigma_color: float, sigma_space: float
         taps, dtype=np.float64)
 
 
-def range_weights(gauss_color_coeff: float, reps: int = 1) -> np.ndarray:
-    """cv2.bilateralFilter's color_weight for a plane of uint8 levels that
-    stands for ``reps`` identical channels: cw[i] = f32(exp((reps*i)^2 *
-    gauss_color_coeff)), i = |x(q) - x(p)| in 0..255, computed in float64
-    before the cast, as cv2 computes it (the summed |delta| over the
-    channels is reps*i, squared as an integer)."""
+def range_weights(gauss_color_coeff: float, reps: int = 1,
+                  planes: int = 1) -> np.ndarray:
+    """cv2.bilateralFilter's color_weight for ``planes`` planes of uint8
+    levels, each standing for ``reps`` identical channels: cw[i] =
+    f32(exp((reps*i)^2 * gauss_color_coeff)), i = sum over the planes of
+    |x(q) - x(p)| in 0..255*planes, computed in float64 before the cast, as
+    cv2 computes it (the summed |delta| over the channels is reps*i,
+    squared as an integer)."""
     return np.asarray([math.exp((reps * i) ** 2 * gauss_color_coeff)
-                       for i in range(256)], dtype=np.float32)
+                       for i in range(255 * planes + 1)], dtype=np.float32)
 
 
 def space_weights(radius: int, gauss_space_coeff: float) -> np.ndarray:

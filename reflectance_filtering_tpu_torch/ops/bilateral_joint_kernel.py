@@ -14,21 +14,33 @@ names so that each counterpart is easy to find:
     src, with ``joint_reps``;
   * ``joint_bilateral_filter_fast``, the HWC adapter over the first.
 
-Each computes, for every pixel p over OpenCV's disk of radius r,
-``w = exp((sum_c |J_c(q) - J_c(p)|)^2 * gcc * reps^2 + (dx^2 + dy^2) * gsc)``
-and ``out_c = sum w S_c(q) / sum w``, with reflect-101 borders.  The TPU
+Each computes, for every pixel p over OpenCV's disk of radius r, with
+``D = sum_c |J_c(q) - J_c(p)|``, ``out_c = sum w S_c(q) / sum w`` with
+reflect-101 borders, and a weight whose form follows the wrapper:
+
+  * ``joint_bilateral_planar_batched`` (float values): the TPU kernel's
+    ``w = exp(D^2 * gcc * reps^2 + (dx^2 + dy^2) * gsc)``;
+  * the two u8 wrappers (integer levels): cv2's table form, ``w =
+    sw[dx^2 + dy^2] * cw[D]`` with cw the float64-built color_weight of
+    :func:`~.bilateral.range_weights` over the joint planes (``joint_reps``
+    folded in: cw[i] = exp((reps i)^2 gcc)) and sw its space_weight
+    (:func:`~.bilateral.space_weights`).
+
+On integer levels the two forms differ only in float32 rounding.  The TPU
 wrappers' ``th``, ``pack`` and ``auto_pack`` choose tile heights and
 mantissa or lane packings that compute this same function; they have no
-counterpart here.  The plain versions loop over the disk's taps on whole
-planes; the kernel sums in another order, so the two agree to float32
-rounding (the uint8 gate), not bitwise.
+counterpart here.  The plain version loops over the disk's taps on whole
+planes in the kernel's tap order with the same weight form; the kernel
+fuses multiply and add, so the two agree to float32 rounding (the uint8
+gate), not bitwise.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  The u8 wrappers take float32 tensors that hold integers 0-255 (the
-JAX wrappers' contract) and the kernel keeps their tiles as bytes; the
-float wrapper keeps floats.  A tile and its halo must fit one block's
-shared memory: :func:`max_radius` gives the largest radius of each pairing
-(every radius of the repo's sweeps, up to 33, fits them all).
+JAX wrappers' contract) and the kernel packs each pixel's levels into one
+32-bit tile word; the float wrapper keeps floats.  A tile and its halo (and,
+in the table form, the range table) must fit one block's shared memory:
+:func:`max_radius` gives the largest radius of each pairing (every radius
+of the repo's sweeps, up to 33, fits them all).
 """
 from __future__ import annotations
 
@@ -38,21 +50,44 @@ import numpy as np
 import torch
 
 from . import _build
-from .bilateral import opencv_bilateral_coeffs, pad_reflect101
+from .bilateral import (opencv_bilateral_coeffs, pad_reflect101,
+                        range_weights, space_weights)
+from .bilateral_kernel import _tables
 
-TILE_H, TILE_W = 16, 32               # csrc/bilateral_joint.cu's kTileH, kTileW
+TILE_H, TILE_W = 16, 32               # the float form's kTileH, kTileW
+# the uint8 form (csrc/bilateral_joint_u8.cuh): 8 pixels a thread, 32 rows
+# of threads, the range table in 2^4 copies
+U8_PIX, U8_ROWS, U8_TABLE_SHIFT = 8, 32, 4
 SMEM_LIMIT = 232448                   # shared memory one H100 block can take
 _GRID_LIMIT = 65535
 _CHANNELS = (1, 3)
 
 
+def _align4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def smem_bytes(cj: int, cs: int, self_guided: bool, u8: bool,
                radius: int) -> int:
-    """Shared memory of one block of the kernel: the 16 x 32 tile and its
-    halo, for each joint plane and (unless self-guided) each src plane."""
-    planes = cj if self_guided else cj + cs
-    return (planes * (TILE_H + 2 * radius) * (TILE_W + 2 * radius)
-            * (1 if u8 else 4))
+    """Shared memory of one block of the kernel.  Float form: the 16 x 32
+    tile and its halo, for each joint and src plane.  uint8 form
+    (``Geometry`` in csrc/bilateral_joint_u8.cuh): the range table, the
+    spatial weights and the word tile, 128 x 32 pixels with its halo (64 x
+    32 and two word arrays for cj = cs = 3 with joint != src), each row 8
+    runs of ceil(cols / 8) words padded to a pitch congruent to the threads
+    across a row modulo 32."""
+    if not u8:
+        return ((cj + cs) * (TILE_H + 2 * radius) * (TILE_W + 2 * radius)
+                * 4)
+    split = not self_guided and cj + cs > 4
+    threads_x = 8 if split else 16
+    cols = threads_x * U8_PIX + 2 * radius
+    seg = (cols + 7) // 8
+    pitch = 8 * seg + (threads_x - 8 * seg) % 32
+    rows = U8_ROWS + 2 * radius
+    return 4 * (_align4((255 * cj + 1) << U8_TABLE_SHIFT)
+                + _align4(radius * radius + 1)
+                + (2 if split else 1) * rows * pitch)
 
 
 def max_radius(cj: int, cs: int, self_guided: bool, u8: bool) -> int:
@@ -71,27 +106,42 @@ def check_channels(cj: int, cs: int) -> None:
 
 
 def bilateral_joint_plain(joint: torch.Tensor, src: torch.Tensor,
-                          radius: int, gcc: float, gsc: float
+                          radius: int, gcc: float, gsc: float,
+                          joint_reps: int = 1, u8: bool = False
                           ) -> torch.Tensor:
-    """Plain version of K6: a loop over the disk's taps on whole planes.
-    joint [N, cj, H, W], src [N, cs, H, W] -> [N, cs, H, W]; ``gcc``
-    includes ``joint_reps^2``."""
-    n, _, h, w = joint.shape
+    """Plain version of K6: a loop over the disk's taps on whole planes, in
+    the kernel's order (row by row, dx ascending).  joint [N, cj, H, W],
+    src [N, cs, H, W] -> [N, cs, H, W].  ``u8``: cv2's table form on
+    integer levels (the two u8 wrappers), else the exp form with ``gcc *
+    joint_reps^2`` (the float wrapper)."""
+    n, cj, h, w = joint.shape
     jp = pad_reflect101(joint, radius)
     sp = jp if src is joint else pad_reflect101(src, radius)
-    gcc = np.float32(gcc)
-    gsc = np.float32(gsc)
     acc = torch.zeros_like(src)
     wsum = torch.zeros((n, 1, h, w), dtype=torch.float32, device=src.device)
+    if u8:
+        cw = torch.from_numpy(range_weights(gcc, joint_reps, cj)).to(
+            src.device)
+        sw = space_weights(radius, gsc)
+        center, jpl = joint.long(), jp.long()
+    else:
+        g2 = np.float32(gcc * float(joint_reps * joint_reps))
+        gsc = np.float32(gsc)
     for dy in range(-radius, radius + 1):
         dxmax = math.isqrt(radius * radius - dy * dy)
         for dx in range(-dxmax, dxmax + 1):
             ys = slice(radius + dy, radius + dy + h)
             xs = slice(radius + dx, radius + dx + w)
-            diff = (jp[:, :, ys, xs] - joint).abs().sum(dim=1, keepdim=True)
-            # the spatial term in f32, as the kernel computes it
-            wgt = torch.exp(diff * diff * gcc
-                            + np.float32(dy * dy + dx * dx) * gsc)
+            if u8:
+                diff = (jpl[:, :, ys, xs] - center).abs().sum(
+                    dim=1, keepdim=True)
+                wgt = cw[diff] * float(sw[dy * dy + dx * dx])
+            else:
+                diff = (jp[:, :, ys, xs] - joint).abs().sum(dim=1,
+                                                            keepdim=True)
+                # the spatial term in f32, as the kernel computes it
+                wgt = torch.exp(diff * diff * g2
+                                + np.float32(dy * dy + dx * dx) * gsc)
             acc += wgt * sp[:, :, ys, xs]
             wsum += wgt
     return acc / wsum
@@ -118,9 +168,9 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
         raise ValueError("joint and src must share a device")
     radius, gcc, gsc = opencv_bilateral_coeffs(d, sigma_color,
                                                sigma_space)
-    gcc = gcc * float(joint_reps * joint_reps)
     if joint.device.type == "cpu":
-        return bilateral_joint_plain(joint, src, radius, gcc, gsc)
+        return bilateral_joint_plain(joint, src, radius, gcc, gsc,
+                                     joint_reps, u8)
     _build.require_cuda(joint, name)
     need = smem_bytes(cj, cs, self_guided, u8, radius)
     if need > SMEM_LIMIT:
@@ -132,11 +182,15 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
     if n > _GRID_LIMIT:
         raise ValueError("{}: batch {} exceeds the kernel's grid limit of "
                          "{}".format(name, n, _GRID_LIMIT))
+    tables = (_tables(joint.device, radius, joint_reps, gcc, gsc, cj)
+              if u8 else None)
     out = torch.empty_like(src)
     if out.numel():
         _build.launch("rf_bilateral_joint", joint.device, joint.data_ptr(),
-                      src.data_ptr(), out.data_ptr(), n, cj, cs, h, w,
-                      int(self_guided), int(u8), radius, gcc, gsc)
+                      src.data_ptr(), out.data_ptr(),
+                      tables.data_ptr() if u8 else None, n, cj, cs, h, w,
+                      int(self_guided), int(u8), radius,
+                      gcc * float(joint_reps * joint_reps), gsc)
         wrapper.launches += 1
     return out
 

@@ -77,11 +77,13 @@ def bilateral_gray_self_plain(x: torch.Tensor, d: int = -1,
 
 @functools.lru_cache(maxsize=16)
 def _tables(device: torch.device, radius: int, reps: int, gcc: float,
-            gsc: float) -> torch.Tensor:
-    """[cw (256) | sw (radius^2 + 1)] float32 on ``device``, the uint8
-    form's tables, uploaded once per parameter set."""
+            gsc: float, planes: int = 1) -> torch.Tensor:
+    """[cw (255 planes + 1) | sw (radius^2 + 1)] float32 on ``device``, the
+    uint8 form's tables (K2's one plane, K6's joint planes), uploaded once
+    per parameter set."""
     return torch.from_numpy(np.concatenate([
-        range_weights(gcc, reps), space_weights(radius, gsc)])).to(device)
+        range_weights(gcc, reps, planes), space_weights(radius, gsc)])).to(
+            device)
 
 
 def bilateral_gray_self(x: torch.Tensor, d: int = -1,

@@ -8,8 +8,11 @@ with ReLU, the skip concat and the fuse conv.  On a CUDA tensor the forward
 and the backward are one kernel launch each (plus the backward's fixed-order
 sum of per-block partials); the backward rematerialises the activations
 instead of storing them and returns every parameter gradient and,
-optionally, the input cotangent.  The TPU kernel's bf16x3 splits do not
-carry over: the Hopper kernels run plain f32 FMAs.
+optionally, the input cotangent.  The forward runs f32 FMAs; the
+backward runs its matrix products (the rematerialisation, the chain and
+the weight gradients) as 3xTF32 on the tensor cores, Hopper's TF32 pieces
+in place of the TPU kernel's bf16x3 splits (its arithmetic is emulated on
+the CPU in tests/test_torch_cnn_train_tf32.py).
 
 ``trunk_backward_variant`` runs the backward's timing variants (the port
 of scripts/measure_train_bwd_split.py, TPU kernel 19): the same kernel with
@@ -282,7 +285,7 @@ BWD_VARIANTS = ("full", "-dw", "-dw-chain", "-dw-chain-head", "empty",
 # the phase mask that each of variants 0-4 runs
 BWD_MASKS = (REMAT | HEAD | CHAIN | WEIGHT_GRAD, REMAT | HEAD | CHAIN,
              REMAT | HEAD, REMAT, 0)
-TILE = 64   # pixels per tile of the backward (kTile); the floor is per tile
+TILE = 128  # pixels per tile of the backward (kBTile); the floor is per tile
 
 
 def block_sum_plain(work: torch.Tensor, shape: Shape) -> torch.Tensor:
@@ -310,7 +313,7 @@ def trunk_backward_variant_plain(x: torch.Tensor, g: torch.Tensor,
     * -dw-chain: also dz_l = [h_l > 0] (g W_f,l^T), no W_{l+1} term, so
       db_l is the sum of that;
     * -dw-chain-head: also dW_fuse zero;
-    * empty: only db_fuse, each entry the sum over the 64-pixel tiles of
+    * empty: only db_fuse, each entry the sum over the TILE-pixel tiles of
       x[tile's first pixel, 0] + g[tile's first pixel, 0];
     * block sum: the rows of ``work`` summed in block order."""
     n, ci, f, cout = shape

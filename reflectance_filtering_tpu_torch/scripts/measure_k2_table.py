@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 import sys
 from typing import Dict
 
@@ -53,22 +52,9 @@ def _layout_fn():
     the product's (nvcc with the product's flags)."""
     global _fn
     if _fn is None:
-        deps = [SOURCE] + [os.path.join(_build.CSRC_DIR, name) for name in (
-            "bilateral_gray_self.cuh", "bilateral_common.cuh")]
-        out_dir = os.path.join(_build.BUILD_ROOT,
-                               "k2_table_" + _build._digest(deps))
-        so_path = os.path.join(out_dir, "libk2_table.so")
-        if not os.path.isfile(so_path):
-            os.makedirs(out_dir, exist_ok=True)
-            proc = subprocess.run(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                 so_path, SOURCE], capture_output=True, text=True)
-            with open(os.path.join(out_dir, "build.log"), "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed on {}:\n{}".format(
-                    SOURCE, (proc.stdout + proc.stderr)[-4000:]))
-        fn = ctypes.CDLL(so_path).rf_k2_table_layout
+        fn = _build.script_library(SOURCE, ("bilateral_gray_self.cuh",
+                                            "bilateral_common.cuh"),
+                                   "k2_table").rf_k2_table_layout
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [i, p, p, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int

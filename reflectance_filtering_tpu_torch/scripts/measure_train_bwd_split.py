@@ -135,18 +135,21 @@ def make_inputs(device, seed: int = 0):
     return x.to(device), g.to(device), flat.to(device)
 
 
-def register_report() -> Dict[int, str]:
-    """mask -> 'N registers, S bytes spill stores, L bytes spill loads' of
-    each instantiation of the backward, from the build's ptxas report."""
-    out, mask, spill = {}, None, ""
+def register_report() -> Dict[tuple, str]:
+    """(mask, dW in registers) -> 'N registers, S bytes spill stores, L
+    bytes spill loads' of each instantiation of the backward, from the
+    build's ptxas report."""
+    out, key, spill = {}, None, ""
     with open(os.path.join(_build.build_dir(), "build.log")) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                km = re.search(r"trunk_bwd_kernelILi(\d+)E", m.group(1))
-                mask = int(km.group(1)) if km else None
+                km = re.search(r"trunk_bwd_kernelILi(\d+)ELb([01])E",
+                               m.group(1))
+                key = ((int(km.group(1)), km.group(2) == "1") if km
+                       else None)
                 continue
-            if mask is None:
+            if key is None:
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
@@ -155,8 +158,8 @@ def register_report() -> Dict[int, str]:
                     *m.groups())
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                out[mask] = "{} registers, {}".format(m.group(1), spill)
-                mask = None
+                out[key] = "{} registers, {}".format(m.group(1), spill)
+                key = None
     return out
 
 
@@ -232,8 +235,10 @@ def print_table(result, registers=None) -> Dict[str, float]:
                                         rates[stage]))
     if registers:
         for mask, row in zip(k7.BWD_MASKS, ROWS):
-            print("  ptxas {:<18} (mask {:2d}): {}".format(
-                row, mask, registers.get(mask, "not in the report")))
+            for in_regs in (True, False):
+                print("  ptxas {:<18} (mask {:2d}, dW {}): {}".format(
+                    row, mask, "in registers" if in_regs else "in the row",
+                    registers.get((mask, in_regs), "not in the report")))
     return deltas
 
 

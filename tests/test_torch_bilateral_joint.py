@@ -175,8 +175,9 @@ def test_bilateral_cli_matches_jax_cli(case, tmp_path):
 
 
 def test_wrappers_cpu_dispatch_and_checks(rng):
-    """A CPU tensor runs the plain version and counts no launch; shapes and
-    plane counts without a kernel raise; every (cj, cs) fits radius 33
+    """A CPU tensor runs the plain version (the exp form for the float
+    wrapper, the table form for the u8 ones) and counts no launch; shapes
+    and plane counts without a kernel raise; every (cj, cs) fits radius 33
     (the repo's sweeps go up to sigma_s 22), and the float 3 + 3 planes
     stop at 37."""
     x = torch.from_numpy(_u8(rng, 1, 3, 9, 10))
@@ -185,10 +186,12 @@ def test_wrappers_cpu_dispatch_and_checks(rng):
                 k6.bilateral_packed_joint_batched)
     before = [fn.launches for fn in wrappers]
     radius, gcc, gsc, _ = tbil.opencv_bilateral_params(-1, 20.0, 2.0)
-    exp = k6.bilateral_joint_plain(x, x, radius, gcc, gsc)
     for fn in wrappers:
         got = fn(x, -1, 20.0, 2.0) if fn is k6.bilateral_color_self_batched \
             else fn(x, x, -1, 20.0, 2.0)
+        exp = k6.bilateral_joint_plain(
+            x, x, radius, gcc, gsc,
+            u8=fn is not k6.joint_bilateral_planar_batched)
         np.testing.assert_array_equal(got.numpy(), exp.numpy())
     assert [fn.launches for fn in wrappers] == before
     with pytest.raises(ValueError, match="1 or 3"):
@@ -211,6 +214,73 @@ def test_wrappers_cpu_dispatch_and_checks(rng):
                     <= k6.SMEM_LIMIT
                     < k6.smem_bytes(cj, cs, self_guided, u8, r + 1))
     assert k6.max_radius(3, 3, False, False) == 37
+
+
+@pytest.mark.parametrize("cj", [1, 3])
+@pytest.mark.parametrize("reps", [1, 3])
+def test_range_table_is_cv2_color_weight(cj, reps):
+    """The u8 form's range table over cj joint planes that each stand for
+    ``reps`` channels is cv2's color_weight for cj * reps channels,
+    f32(exp(i^2 * gauss_color_coeff)) computed in float64 (bilateralFilter_8u),
+    at the summed |delta| reps * i: bitwise, for every i in 0..255 cj."""
+    _, gcc, _ = tbil.opencv_bilateral_coeffs(-1, 20.0, 22.0)
+    cw = tbil.range_weights(gcc, reps, cj)
+    assert cw.dtype == np.float32 and cw.shape == (255 * cj + 1,)
+    cv2_cw = np.array([np.exp(np.float64(i * i) * gcc)
+                       for i in range(256 * cj * reps)]).astype(np.float32)
+    np.testing.assert_array_equal(cw, cv2_cw[reps * np.arange(255 * cj + 1)])
+    table = k6._tables(torch.device("cpu"), 4, reps, gcc, -0.5 / 9.0, cj)
+    np.testing.assert_array_equal(table[:255 * cj + 1].numpy(), cw)
+    np.testing.assert_array_equal(table[255 * cj + 1:].numpy(),
+                                  tbil.space_weights(4, -0.5 / 9.0))
+
+
+@pytest.mark.parametrize("cj,cs,reps,self_guided", [
+    (3, 3, 1, True), (3, 1, 1, False), (1, 1, 3, False), (1, 3, 3, False),
+    (3, 3, 1, False)])
+def test_table_form_within_float32_of_exp_form(cj, cs, reps, self_guided,
+                                               rng):
+    """On integer levels the u8 wrappers' table form (cw[D] * sw[s]) and
+    the exp form give the same filter to float32 rounding: within 2e-6 of
+    the largest value, and 0 levels apart after rounding on >= 99.9% of
+    pixels (the rest sit at a .5 tie), at radius 4 and at radius 33 on a
+    frame smaller than the radius."""
+    for h, w, ss in ((24, 40, 3.0), (20, 27, 22.0)):
+        joint = torch.from_numpy(_u8(rng, 2, cj, h, w))
+        src = joint if self_guided else torch.from_numpy(_u8(rng, 2, cs, h,
+                                                             w))
+        radius, gcc, gsc = tbil.opencv_bilateral_coeffs(-1, SIGMA_C, ss)
+        table = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc, reps,
+                                         u8=True)
+        expf = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc, reps)
+        assert table.shape == (2, cs, h, w)
+        assert (table - expf).abs().max().item() <= 2e-6 * 255
+        d = (torch.round(table) - torch.round(expf)).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("cs", [1, 3])
+def test_one_plane_joint_reps3_matches_jax_dispatch(cs, rng):
+    """cj = 1 with joint_reps = 3 (a gray guide read as three equal
+    channels) through the u8 wrapper's table form, against the JAX
+    package's packed-joint kernel in interpret mode (rtol 1e-4, atol 2e-3)
+    and, rounded to uint8, against cv2.bilateralFilter's sum over three
+    equal guide channels (the 3-channel self filter of the guide, whose
+    weights the joint filter shares when src is the guide)."""
+    g = _u8(rng, 1, 1, 30, 44)
+    src = g if cs == 1 else np.concatenate([g] * 3, axis=1)
+    with pltpu.force_tpu_interpret_mode():
+        exp = np.asarray(jbp.bilateral_packed_joint_batched(
+            jnp.asarray(g), jnp.asarray(src), -1, SIGMA_C, 22.0,
+            joint_reps=3))
+    got = k6.bilateral_packed_joint_batched(
+        torch.from_numpy(g), torch.from_numpy(np.ascontiguousarray(src)),
+        -1, SIGMA_C, 22.0, joint_reps=3).numpy()
+    np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+    img = np.repeat(g[0, 0, :, :, None], 3, axis=-1).astype(np.uint8)
+    ref = cv2.bilateralFilter(img, -1, SIGMA_C, 22.0)[..., 0]
+    d = np.abs(np.rint(got[0, 0]).astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02, (d.max(), (d > 0).mean())
 
 
 def test_every_entry_point_has_a_signature():

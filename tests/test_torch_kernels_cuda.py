@@ -139,10 +139,49 @@ def test_bilateral_joint_kernel_matches_plain(dev, cj, cs, self_guided, u8,
     got = fn(*args, -1, 20.0, sigma_space, **kwargs)
     assert fn.launches == before + 1
     radius, gcc, gsc, _ = opencv_bilateral_params(-1, 20.0, sigma_space)
-    exp = k6.bilateral_joint_plain(joint, src, radius, gcc * reps * reps, gsc)
+    exp = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc, reps, u8)
     d = (torch.round(got) - torch.round(exp)).abs()
     assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
     assert (got - exp).abs().max().item() <= 1e-3
+
+
+# K6's uint8 pairings (cj, cs, self-guided, joint_reps) at their largest
+# radius, and cj = 1 standing for three channels
+K6_U8_EDGES = [(3, 3, True, 1), (3, 1, False, 1), (3, 3, False, 1),
+               (1, 1, False, 3), (1, 3, False, 3)]
+
+
+@pytest.mark.parametrize("cj,cs,self_guided,reps", K6_U8_EDGES)
+def test_bilateral_joint_u8_at_max_radius(dev, cj, cs, self_guided, reps):
+    """K6's uint8 form at max_radius (its shared memory at the block's
+    limit; the frame smaller than the radius, so reflection repeats) and
+    at radius 33 on a frame with ragged tiles in both directions, against
+    the plain table form: within 1 uint8 level, equal on >= 99.9%; one
+    radius more raises before any launch."""
+    rng = np.random.RandomState(9)
+    r_max = k6.max_radius(cj, cs, self_guided, True)
+    assert r_max >= 33
+    fn = (k6.bilateral_color_self_batched if self_guided
+          else k6.bilateral_packed_joint_batched)
+    for (n, h, w), radius in (((1, 40, 52), r_max), ((2, 70, 150), 33)):
+        joint = torch.from_numpy(rng.randint(0, 256, (n, cj, h, w)).astype(
+            np.float32)).to(dev)
+        src = joint if self_guided else torch.from_numpy(rng.randint(
+            0, 256, (n, cs, h, w)).astype(np.float32)).to(dev)
+        args = (joint,) if self_guided else (joint, src)
+        kwargs = {} if self_guided else {"joint_reps": reps}
+        before = fn.launches
+        got = fn(*args, 2 * radius + 1, 20.0, 22.0, **kwargs)
+        assert fn.launches == before + 1
+        _, gcc, gsc = k6.opencv_bilateral_coeffs(2 * radius + 1, 20.0, 22.0)
+        exp = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc, reps,
+                                       u8=True)
+        d = (torch.round(got) - torch.round(exp)).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+        assert (got - exp).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="largest radius .* is {}".format(
+            r_max)):
+        fn(*args, 2 * r_max + 3, 20.0, 22.0, **kwargs)
 
 
 def test_bilateral_joint_kernel_refuses_too_large_a_radius(dev):
@@ -325,11 +364,14 @@ def test_guided_kernel_refuses_bad_shapes(dev):
 
 # K7 configurations (n, ci, f, cout) and pixel counts: the flagship, the
 # JAX package's test configs, RS's 6-wide head, an odd 37x53 frame, the
-# widest filters and the most input/output channels fits_fused_trunk admits
+# widest filters and the most input/output channels fits_fused_trunk admits,
+# and the widest trunk at the flagship's depth over many tiles a block (its
+# dz and activations in the workspace, its dW summed per tile into the row)
 K7_CASES = [((5, 3, 32, 1), 3 * 4099), ((2, 3, 16, 1), 37 * 53),
             ((1, 3, 32, 1), 1000), ((2, 3, 128, 1), 2 * 48 * 64),
             ((3, 3, 16, 6), 37 * 53), ((3, 8, 256, 8), 777),
-            ((2, 5, 40, 3), 129), ((1, 1, 8, 1), 5)]
+            ((2, 5, 40, 3), 129), ((1, 1, 8, 1), 5),
+            ((5, 3, 256, 1), 4 * 96 * 128)]
 
 
 def _k7_inputs(dev, shape, p, seed=0):

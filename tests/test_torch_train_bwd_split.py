@@ -7,7 +7,7 @@ The JAX kernel accumulates over 8192-pixel grid steps; P = 16384 takes two,
 so the accumulation across steps is exercised.  Tolerance: each leaf within
 2e-4 of its largest value (the JAX package's gate for its fused trunk, set
 by its bf16x3 products).  The floor variant touches one pixel per tile, and
-the two tiles differ (8192 against the port's 64 pixels), so the port's
+the two tiles differ (8192 against the port's 128 pixels), so the port's
 floor is held against numpy on its own tiles."""
 import importlib.util
 import os
@@ -117,17 +117,18 @@ def test_full_variant_is_the_gradient(inputs):
 
 
 def test_floor_variant_on_the_ports_tiles(rng):
-    """empty: db_fuse = the sum over 64-pixel tiles of x[first, 0] +
-    g[first, 0] (a ragged last tile too), every other entry zero."""
+    """empty: db_fuse = the sum over the backward's tiles (k7.TILE = 128
+    pixels) of x[first, 0] + g[first, 0] (a ragged last tile too), every
+    other entry zero."""
     shape = (2, 3, 8, 3)
-    p = 64 * 5 + 17
+    p = k7.TILE * 5 + 17
     x = rng.rand(p, 3).astype(np.float32)
     g = rng.randn(p, 3).astype(np.float32)
     flat = torch.from_numpy(rng.randn(k7.num_params(shape))
                             .astype(np.float32))
     got = k7.trunk_backward_variant_plain(torch.from_numpy(x),
                                           torch.from_numpy(g), flat, shape, 4)
-    want = sum(float(x[t, 0]) + float(g[t, 0]) for t in range(0, p, 64))
+    want = sum(float(x[t, 0]) + float(g[t, 0]) for t in range(0, p, k7.TILE))
     ws, bs = k7.unpack(got, shape)
     np.testing.assert_allclose(bs[-1].numpy(), np.full(3, want), rtol=1e-6)
     assert all(float(w.abs().max()) == 0 for w in ws)
