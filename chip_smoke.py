@@ -10,18 +10,24 @@ Phases (any failure exits nonzero before the result line):
               csrc/, one process per source (build seconds, the compiler's
               register report), and the machine code is read (cuobjdump):
               K2's uint8 instantiation issues no MUFU.EX2, the float one
-              some, and so do K6's five uint8 and four float ones; K1 issues
-              HMMA .TF32 (3xTF32 on the tensor cores) and no FFMA on a
-              constant-bank weight (its instruction count is printed), and
-              K7's backward HMMA .TF32 (each instantiation's HMMA count
-              printed); the F2F.F64.F32 conversions of K5's and K9's row
-              passes are counted per kernel;
+              some, and so do K6's five uint8 and four float ones (each
+              float instantiation's instruction and MUFU.EX2 counts printed
+              beside its first port's, built by
+              reflectance_filtering_tpu_torch/scripts/measure_k6_float.py);
+              K1 issues HMMA .TF32 (3xTF32 on the tensor cores) and no FFMA
+              on a constant-bank weight (its instruction count is printed),
+              and so do K7's backward and every instantiation of its
+              tensor-core forward, its FP32 forward none (each
+              instantiation's HMMA count printed); the F2F.F64.F32
+              conversions of K5's and K9's row passes are counted per
+              kernel;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
               --subsample=4 planes; the joint bilateral K6 at the JAX
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
-              photo), both in cv2's table form, float with a 3-plane joint),
+              photo), both in cv2's table form, float with a 3-plane joint;
+              each float pairing at its largest radius and at sigma_s = 3),
               plus degenerate shapes,
               gated (K2 on each input as uint8 levels, cv2's table form,
               and as float32, the exp form; K5 also at C=3 with r=300 and
@@ -33,7 +39,9 @@ Phases (any failure exits nonzero before the result line):
   3t. train   the training kernels against their plain versions on the
               card: the fused skip-layer trunk K7 (forward against the plain
               trunk, backward against plain autograd) at the flagship's
-              20 x 256x256 and four other configs on a 37x53 frame, and
+              20 x 256x256 and four other configs on a 37x53 frame, its
+              forward counted through the kernel its shape takes (the
+              tensor cores' for all but the 128-wide trunk), and
               the WHDR scatter-add K8 against index_put_(accumulate=True)
               with forced collisions; each backward launched twice and held
               bitwise equal; K7's backward split by phase (TPU kernel 19) at
@@ -99,8 +107,11 @@ Phases (any failure exits nonzero before the result line):
               table in the product's layout against two others,
               reflectance_filtering_tpu_torch/scripts/
               measure_k2_table.py; K6's uint8 range table likewise,
-              measure_k6_table.py), both slices' images/s, the MP/s of the color-self and
-              BF(reflectance, photo) bilateral, and the training step's ms
+              measure_k6_table.py; K6's float form in its product geometry
+              beside its first port, three other geometries and the
+              factored weight, measure_k6_float.py), both slices'
+              images/s, the MP/s of the color-self and BF(reflectance,
+              photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
               calls, each K9 launch's ms, K9's six passes timed apart at 4K
@@ -353,6 +364,32 @@ def launch_before(name, device, *args):
         raise RuntimeError("{} failed: CUDA error {}".format(name, rc))
 
 
+def sass_lines(fn):
+    """The instruction lines of one function in cuobjdump -sass output."""
+    return [line for line in fn.splitlines()
+            if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
+
+
+def loop_per_ex2(fn):
+    """(instructions, MUFU.EX2) of the smallest loop of one function's
+    machine code that holds a MUFU.EX2 (from a backward branch's target to
+    the branch): in K6's float form, a pixel-tap is one MUFU.EX2."""
+    lines = sass_lines(fn)
+    addr = [int(re.match(r"\s+/\*([0-9a-f]+)\*/", line).group(1), 16)
+            for line in lines]
+    at = {a: i for i, a in enumerate(addr)}
+    best = (0, 0)
+    for i, line in enumerate(lines):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", line)
+        j = at.get(int(m.group(1), 16)) if m else None
+        if j is None or j >= i:
+            continue
+        ex2 = sum("MUFU.EX2" in body for body in lines[j:i + 1])
+        if ex2 and (not best[1] or i - j + 1 < best[0]):
+            best = (i - j + 1, ex2)
+    return best
+
+
 def u8(t):
     """The product's uint8 write path, as uint8-valued float."""
     return torch.clamp(torch.round(t), 0, 255)
@@ -375,7 +412,7 @@ def check_training_kernels(dev, seed):
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         scatter_pairs, scatter_pairs_plain)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    errs, keep = {}, {}
+    errs, keep, tc_cases = {}, {}, []
     cases = [("flagship {}x{}x{}".format(TB, H, W), (5, 3, 32, 1),
               TB * H * W)] + [("37x53 (n, ci, f, cout)={}".format(shape),
                                shape, 37 * 53) for shape in K7_OTHER]
@@ -388,7 +425,13 @@ def check_training_kernels(dev, seed):
         flat += 0.05 * torch.randn(flat.shape, device=dev, generator=gen)
         x = torch.rand(p, ci, device=dev, generator=gen)
         g = torch.randn(p, cout, device=dev, generator=gen)
+        tc_before = k7.trunk_forward.tensor_core_launches
         pre = k7.trunk_forward(x, flat, shape)
+        on_tc = k7.trunk_forward.tensor_core_launches - tc_before
+        tc_cases.append(on_tc)
+        check(on_tc == int(k7.forward_on_tensor_cores(shape)),
+              "K7 {} forward counted through the {} kernel".format(
+                  name, "tensor cores'" if on_tc else "FP32"))
         pre_p = k7.trunk_forward_plain(x, flat, shape)
         grad, dx = k7.trunk_backward(x, g, flat, shape, True)
         grad_p, dx_p = k7.trunk_backward_plain(x, g, flat, shape, True)
@@ -418,6 +461,9 @@ def check_training_kernels(dev, seed):
             errs["cnn_train_fwd"] = fwd_err
             errs["cnn_train_bwd"] = (grad - grad_p).abs().max().item()
             keep = {"x": x, "g": g, "flat": flat, "shape": shape}
+
+    check(tc_cases[0] == 1 and 0 in tc_cases, "K7's forward went through "
+          "both of its kernels (the flagship on the tensor cores)")
 
     # kernel 19: the backward's timing variants at the flagship's shapes
     x, g, flat, shape = (keep[key] for key in ("x", "g", "flat", "shape"))
@@ -575,7 +621,7 @@ def main():
     from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
         bilateral_color_self_batched, bilateral_joint_plain,
         bilateral_packed_joint_batched, joint_bilateral_filter_fast,
-        joint_bilateral_planar_batched)
+        joint_bilateral_planar_batched, max_radius, opencv_bilateral_coeffs)
     from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
         bilateral_gray_self, bilateral_gray_self_plain)
     from reflectance_filtering_tpu_torch.ops.box_kernel import (
@@ -606,7 +652,8 @@ def main():
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
-        measure_k2_table as k2_table, measure_k6_table as k6_table,
+        measure_k2_table as k2_table, measure_k6_float as k6_float,
+        measure_k6_table as k6_table,
         measure_k9_passes as k9_passes,
         measure_train_bwd_split as split)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
@@ -663,12 +710,36 @@ def main():
           and len(k6_f_ex2) == 4 and all(k6_f_ex2),
           "K6's five uint8 instantiations issue no MUFU.EX2 (no exp), its "
           "four float ones some")
+    # the float form's machine code beside its first port's (the
+    # measurement script's library): instructions and MUFU.EX2 of each
+    # (cj, cs) instantiation
+    first_sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         k6_float.library_path()], capture_output=True, text=True,
+        check=True).stdout
+    for label, code, kernel in (
+            ("float form", sass, "bilateral_joint_float_kernel"),
+            ("first port", first_sass,
+             "bilateral_joint_float_first_port_kernel")):
+        counts = {}
+        for fn in code.split("Function : ")[1:]:
+            name = fn.split("\n", 1)[0]
+            m = re.search(kernel + r"ILi(\d)ELi(\d)E", name)
+            if m:
+                lines = sass_lines(fn)
+                loop, ex2 = loop_per_ex2(fn)
+                counts["cj={} cs={}".format(*m.groups())] = (
+                    len(lines), sum("MUFU.EX2" in line for line in lines),
+                    "{}/{} = {:.2f} a pixel-tap".format(loop, ex2,
+                                                        loop / ex2))
+        print("K6 {} (instructions, MUFU.EX2, its tap loop's instructions "
+              "per MUFU.EX2) per instantiation: {}".format(
+                  label, dict(sorted(counts.items()))))
     # K1 runs its layers on the tensor cores (HMMA .TF32) and takes no
     # weight as a constant-bank operand (c[0x3], the __constant__ bank)
     k1 = [fn for fn in sass.split("Function : ")[1:]
           if "cnn_fwd_kernel" in fn.split("\n", 1)[0]]
-    k1_lines = [line for fn in k1 for line in fn.splitlines()
-                if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
+    k1_lines = [line for fn in k1 for line in sass_lines(fn)]
     hmma = [line for line in k1_lines if "HMMA" in line]
     const_fma = [line for line in k1_lines
                  if "FFMA" in line and "c[0x3]" in line]
@@ -681,16 +752,24 @@ def main():
           "weight FFMA")
     # K7's backward runs its matrix products on the tensor cores too: every
     # instantiation of its product mask (dW in registers and in the row)
-    # issues HMMA .TF32; its forward, not yet redesigned, issues none
+    # issues HMMA .TF32, and so does every instantiation of its forward on
+    # the tensor cores (n tiles, m tiles, output channels); its FP32
+    # forward, kept for the wide trunks, issues none
     k7_hmma = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0]
-        m = re.search(r"trunk_(bwd|fwd)_kernel(?:ILi(\d+)ELb([01])E)?", name)
+        m = re.search(r"trunk_(bwd|fwd|fwd_mma)_kernel(?:ILi(\d+)E"
+                      r"(?:Lb([01])E|Li(\d+)ELi(\d+)E))?", name)
         if m:
-            lines = [line for line in fn.splitlines()
-                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
-            tag = m.group(1) + ("" if m.group(2) is None else "<{}, {}>".format(
-                m.group(2), "registers" if m.group(3) == "1" else "row"))
+            lines = sass_lines(fn)
+            if m.group(1) == "bwd":
+                tag = "bwd<{}, {}>".format(
+                    m.group(2), "registers" if m.group(3) == "1" else "row")
+            elif m.group(1) == "fwd_mma":
+                tag = "fwd_mma<{}, {}, {}>".format(m.group(2), m.group(4),
+                                                   m.group(5))
+            else:
+                tag = "fwd"
             k7_hmma[tag] = (len(lines), [line for line in lines
                                          if "HMMA" in line])
     print("K7 HMMA per instantiation (instructions, HMMA): {}".format(
@@ -698,9 +777,15 @@ def main():
     product = [h for tag, (_, h) in k7_hmma.items()
                if tag.startswith("bwd<15,")]
     check(len(product) == 2 and all(product)
-          and all("TF32" in line for h in product for line in h)
-          and not k7_hmma.get("fwd", (0, []))[1],
+          and all("TF32" in line for h in product for line in h),
           "K7's backward issues HMMA .TF32 (3xTF32 on the tensor cores)")
+    fwd_mma = [h for tag, (_, h) in k7_hmma.items()
+               if tag.startswith("fwd_mma<")]
+    check(len(fwd_mma) == 16 and all(fwd_mma)
+          and all("TF32" in line for h in fwd_mma for line in h)
+          and "fwd" in k7_hmma and not k7_hmma["fwd"][1],
+          "K7's forward issues HMMA .TF32 in each of its 16 tensor-core "
+          "instantiations and none in its FP32 kernel")
     # the row passes of K5 and K9 convert each staged value to float64
     # once: their F2F.F64.F32 per kernel (the staging's and the first
     # window's, none per tap)
@@ -971,6 +1056,38 @@ def main():
                 check(dl.max().item() <= 1 and eq >= 0.999,
                       "K6 {} {}: <= 1 uint8 level, >= 99.9% equal".format(
                           name, shape))
+        # every float pairing at its largest radius (a frame smaller than
+        # the radius: reflection repeats; against the plain version in
+        # float64, whose float32 running sums over the disk drift by ~1e-3
+        # at radius 73, printed beside) and at sigma_s = 3 on ragged tiles,
+        # radius 4
+        for cj, cs in ((1, 1), (1, 3), (3, 1), (3, 3)):
+            r_max = max_radius(cj, cs, False, False)
+            for (n_, h_, w_), d, sigma_s in (
+                    ((1, 40, 52), 2 * r_max + 1, SIGMA_S),
+                    ((2, 37, 70), -1, 3.0)):
+                j, s_ = floats(n_, cj, h_, w_), floats(n_, cs, h_, w_)
+                qk = joint_bilateral_planar_batched(j, s_, d, SIGMA_C,
+                                                    sigma_s)
+                coeffs = opencv_bilateral_coeffs(d, SIGMA_C, sigma_s)
+                qp = bilateral_joint_plain(j, s_, *coeffs)
+                if d > 0:
+                    print("  against the float32 plain version: max|d|="
+                          "{:.3e}".format((qk - qp).abs().max().item()))
+                    qp = bilateral_joint_plain(j.double(), s_.double(),
+                                               *coeffs).float()
+                torch.cuda.synchronize()
+                err = (qk - qp).abs().max().item()
+                dl = (u8(qk) - u8(qp)).abs()
+                eq = (dl == 0).float().mean().item()
+                what = "K6 float cj={} cs={} r={} {}x{}x{}{}".format(
+                    cj, cs, coeffs[0], n_, h_, w_,
+                    " (float64 plain)" if d > 0 else "")
+                print("{}: max|d|={:.3e}  uint8 max {:.0f} level, {:.4%} "
+                      "equal".format(what, err, dl.max().item(), eq))
+                check(err <= 1e-3 and dl.max().item() <= 1 and eq >= 0.999,
+                      "{}: <= 1e-3, <= 1 uint8 level, >= 99.9% equal".format(
+                          what))
 
     phase("3t. training kernels vs plain on the card")
     train_errs, train_in = check_training_kernels(dev, args.seed)
@@ -1178,8 +1295,12 @@ def main():
         return state, losses
 
     reset_launches()
+    k7.trunk_forward.tensor_core_launches = 0
     state_k, loss_k = train_run(TRAIN_STEPS)
     train_launches = read_launches("training", train_kernels)
+    check(k7.trunk_forward.tensor_core_launches
+          == train_launches["cnn_train_fwd"],
+          "every training step's K7 forward ran on the tensor cores")
     reset_launches()
     state_p, loss_p = train_run(TRAIN_STEPS, kernels=False)
     plain_counts = read_launches("plain training", ())
@@ -1415,6 +1536,9 @@ def main():
             "color-self": (k6_planes[(True, 3)], None),
             "BF(reflectance, photo)": (k6_planes[(True, 3)],
                                        k6_planes[(True, 1)])})
+        # K6's float form: the product's geometry, its first port, three
+        # other geometries and the factored weight, in turns
+        k6_floats = k6_float.measure(k6_float.make_inputs(dev, args.seed))
         slice_ms = time_ms(
             lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]), 10)
         planes = box_in["32x256x256"][0]
@@ -1529,6 +1653,7 @@ def main():
                                                           *k2_float_times))
     k2_table.print_table(k2_tables)
     k6_table.print_table(k6_tables)
+    k6_float.print_table(k6_floats)
     print("box_filter 1x2160x3840 r={}: kernel {:.4f} ms, plain {:.4f} "
           "ms".format(GF_R, *big_times))
     print("guided_filter C=3 32x256x256 r={}: kernel {:.4f} ms, plain "
@@ -1604,8 +1729,14 @@ def main():
             for kernel, ms in sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1])[:12]:
                 print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
+    k7_before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
     busy, per_kernel = device_profile(lambda: step(*step_in),
                                       PROFILE_BATCHES)
+    print("training step: K7 launches per step in the profile: forward "
+          "{:.2f}, backward {:.2f}".format(*(
+              (now - was) / (PROFILE_BATCHES + 1) for now, was in zip(
+                  (k7.trunk_forward.launches, k7.trunk_backward.launches),
+                  k7_before))))
     if per_kernel:
         parts = {"K7 forward": ("trunk_fwd",),
                  "K7 backward + block sum": ("trunk_bwd", "sum_partials"),

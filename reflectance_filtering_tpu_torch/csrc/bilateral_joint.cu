@@ -19,8 +19,12 @@
 // (reflect101, bilateral_common.cuh) and one divide at the end:
 //   out_c(p) = sum_q w(q) S_c(q) / sum_q w(q),  D = sum_c |J_c(q) - J_c(p)|
 // and, by the wrapper:
-//   * the float form (values need not be integers):
-//       w(q) = expf(D^2 gcc + (dx^2 + dy^2) gsc), gcc holding joint_reps^2;
+//   * the float form (values need not be integers): the TPU kernel's
+//       w(q) = exp(D^2 gcc + (dx^2 + dy^2) gsc), gcc holding joint_reps^2,
+//     as 2^(lsw[dx^2 + dy^2] - (k D)^2), k^2 = -gcc log2 e: lsw[s] =
+//     f32(s gsc log2 e) a float64-built table, the power one ex2.approx
+//     (MUFU.EX2) of one float32 FMA, k computed on the host and applied to
+//     the joint values as the tile is filled;
 //   * the uint8 form (inputs hold integers 0-255): cv2's table form,
 //       w(q) = sw[dx^2 + dy^2] * cw[D],
 //     cw[i] = f32(exp((joint_reps i)^2 gcc)) for i = 0 .. 255 cj (cv2's
@@ -32,10 +36,27 @@
 // What bounds it on an H100: the work per tap.  At sigma_s = 22 a pixel
 // walks 3,409 taps; a call at 8 x 256x256 walks 1.79 G, and device memory
 // sees each input value once per block.
-//   * The float form (bilateral_joint_float_kernel): one block per 16 x 32
-//     output tile holds the tile and its radius-wide halo of every plane as
-//     floats in shared memory; all threads walk the disk row by row in the
-//     same order, so no warp diverges; an expf (not __expf, as K2) per tap.
+//   * The float form (bilateral_joint_float.cuh): one block per 16 x 32
+//     output tile holds the tile and its radius-wide halo in shared memory,
+//     a position's joint and src values side by side (one 16-byte load for
+//     cj + cs = 4).  Its first port gave each thread one pixel and paid an
+//     expf, an int-to-float conversion and four loads a tap, ~28 issued
+//     instructions (1.89 ms at 8 x 256x256, cj = 3, cs = 1, against 0.43
+//     ms for its expf alone).  Now a thread takes 4 adjacent pixels of a
+//     row and slides a window of 7 positions 4 at a time, so one load and
+//     one spatial term serve 4 pixels; a tap costs D's subtractions and
+//     adds, the exponent's FMA, MUFU.EX2, an FMA per src plane and an add
+//     (9 for cj = 3, cs = 1; the compiled loop issues 11.4 a pixel-tap, the
+//     first port's 29, and the call takes 0.87 ms on an H100).  A tile row
+//     is stored as 4 runs of every 4th column, so a quarter warp's 16-byte
+//     loads (8 lanes of a row) hit 32 banks.  128 threads cover the tile;
+//     four such groups of 4 warps split the disk's rows (dy mod 4), each
+//     row's sums kept apart and added to its group's, the groups' added in
+//     order at the end, so the SM, which holds one block at r = 33 and
+//     cj + cs = 4 (128 KB), keeps 16 warps.  The footprint, and so each
+//     pairing's largest radius, is the first port's.
+//     scripts/measure_k6_float.py times other geometries, the factored
+//     weight sw[s] * 2^(-(k D)^2) and the first port (PERF.md).
 //   * The uint8 form (bilateral_joint_u8.cuh), K2's design with several
 //     joint planes: a tap is one range-table load from shared memory (the
 //     bound counts 32 such loads per SM per clock), a multiply, an FMA per
@@ -61,105 +82,19 @@
 #include <stdint.h>
 
 #include "bilateral_common.cuh"
+#include "bilateral_joint_float.cuh"
 #include "bilateral_joint_u8.cuh"
 
-namespace {
-
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-
-template <int CJ, int CS>
-__global__ void __launch_bounds__(kTileW * kTileH)
-bilateral_joint_float_kernel(const float* __restrict__ joint,
-                             const float* __restrict__ src, float* __restrict__ out,
-                             int h, int w, int radius, float gcc, float gsc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tile = reinterpret_cast<float*>(smem);
-  const int sw = kTileW + 2 * radius;
-  const int area = (kTileH + 2 * radius) * sw;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t plane = static_cast<size_t>(h) * w;
-  const float* jimg = joint + blockIdx.z * CJ * plane;
-  const float* simg = src + blockIdx.z * CS * plane;
-
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  for (int i = tid; i < area; i += kTileW * kTileH) {
-    const int ty = i / sw;
-    const int tx = i - ty * sw;
-    const size_t at = static_cast<size_t>(reflect101(y0 - radius + ty, h)) * w +
-                      reflect101(x0 - radius + tx, w);
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) tile[c * area + i] = jimg[c * plane + at];
-#pragma unroll
-    for (int c = 0; c < CS; ++c) tile[(CJ + c) * area + i] = simg[c * plane + at];
-  }
-  __syncthreads();
-
-  const int ox = x0 + threadIdx.x;
-  const int oy = y0 + threadIdx.y;
-  if (ox >= w || oy >= h) return;  // ragged tile: compute nothing, write nothing
-
-  const int center = (threadIdx.y + radius) * sw + threadIdx.x + radius;
-  float cen[CJ];
-#pragma unroll
-  for (int c = 0; c < CJ; ++c) cen[c] = tile[c * area + center];
-  float acc[CS];
-#pragma unroll
-  for (int c = 0; c < CS; ++c) acc[c] = 0.0f;
-  float wsum = 0.0f;
-  const int r2 = radius * radius;
-  for (int dy = -radius; dy <= radius; ++dy) {
-    const int dxmax = disk_half_width(r2 - dy * dy);
-    const int row = center + dy * sw;
-    const float fy2 = static_cast<float>(dy * dy);
-    for (int dx = -dxmax; dx <= dxmax; ++dx) {
-      const int q = row + dx;
-      float diff = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) diff += fabsf(tile[c * area + q] - cen[c]);
-      const float wgt =
-          expf(diff * diff * gcc + (fy2 + static_cast<float>(dx * dx)) * gsc);
-#pragma unroll
-      for (int c = 0; c < CS; ++c) acc[c] = fmaf(wgt, tile[(CJ + c) * area + q], acc[c]);
-      wsum += wgt;
-    }
-  }
-  float* o = out + blockIdx.z * CS * plane + static_cast<size_t>(oy) * w + ox;
-#pragma unroll
-  for (int c = 0; c < CS; ++c) o[c * plane] = acc[c] / wsum;
-}
-
-template <int CJ, int CS>
-int launch_float(const float* joint, const float* src, float* out, int n, int h,
-                 int w, int radius, float gcc, float gsc, cudaStream_t stream) {
-  const int smem = (CJ + CS) * (kTileH + 2 * radius) * (kTileW + 2 * radius) *
-                   static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bilateral_joint_float_kernel<CJ, CS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // reset, so the error does not surface at a later launch
-      return static_cast<int>(err);
-    }
-  }
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
-  const dim3 block(kTileW, kTileH);
-  bilateral_joint_float_kernel<CJ, CS><<<grid, block, smem, stream>>>(
-      joint, src, out, h, w, radius, gcc, gsc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 // joint [n, cj, h, w], src [n, cs, h, w] (ignored when self_guided), out
 // [n, cs, h, w], all f32 on the device; cj, cs in {1, 3}.  u8 = 1: the
 // uint8 form (inputs holding integers 0-255), with tables = [cw (255 cj +
 // 1) | sw (radius^2 + 1)] f32 on the device, joint_reps folded into cw;
 // self_guided takes only cj = cs = 3 with u8 = 1 (the color self-guided
-// filter).  u8 = 0: the float form, gcc including joint_reps^2 (tables
-// unread).  Returns the cudaError_t of the attribute call or of the launch
+// filter).  u8 = 0: the float form, tables = lsw (radius^2 + 1) f32 on
+// the device and gcc = k = sqrt(-(range coefficient) joint_reps^2
+// log2(e)), the scale of the joint values (gsc unread).  Returns the
+// cudaError_t of the attribute call or of the launch
 // (cudaErrorInvalidValue for a pairing that has no instantiation); the
 // wrapper keeps the shared memory within the 227 KB a block can take.
 extern "C" int rf_bilateral_joint(const float* joint, const float* src,
@@ -171,13 +106,5 @@ extern "C" int rf_bilateral_joint(const float* joint, const float* src,
     return k6u8::launch_any<4>(cj, cs, self_guided, joint, src, out, tables, n, h, w,
                                radius, stream);
   if (self_guided) return static_cast<int>(cudaErrorInvalidValue);
-  if (cj == 1 && cs == 1)
-    return launch_float<1, 1>(joint, src, out, n, h, w, radius, gcc, gsc, stream);
-  if (cj == 1 && cs == 3)
-    return launch_float<1, 3>(joint, src, out, n, h, w, radius, gcc, gsc, stream);
-  if (cj == 3 && cs == 1)
-    return launch_float<3, 1>(joint, src, out, n, h, w, radius, gcc, gsc, stream);
-  if (cj == 3 && cs == 3)
-    return launch_float<3, 3>(joint, src, out, n, h, w, radius, gcc, gsc, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return k6f::launch_any<4, 4, true>(cj, cs, joint, src, out, tables, n, h, w, radius, gcc, stream);
 }

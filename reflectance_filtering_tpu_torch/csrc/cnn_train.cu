@@ -20,11 +20,18 @@
 // (rematerialisation 4,352, the chain 4,256, the weight gradients 4,352)
 // against 12-16 bytes of device memory per pixel, far on the compute side.
 //
-// The forward (trunk_fwd_kernel): a block takes a tile of 64 pixels whose
-// activations live in shared memory as [channel][68]; each layer is a
-// small f32 FMA product, a work item (8 output channels, 1 pixel) per
-// thread, weight reads uniform across a warp; the skip fuse is accumulated
-// layer by layer, so no [P, n*f] concat exists anywhere.
+// The forward, by shape (fwd_on_tensor_cores; the skip fuse accumulated
+// layer by layer in both, so no [P, n*f] concat exists anywhere):
+//   * f <= 64 and (n - 1) f^2 <= 16,384 (the flagship and the train CLI's
+//     default trunk): trunk_fwd_mma_kernel, K1's register-resident
+//     3xTF32 scheme with K7's dynamic n, ci and cout (below): the flagship
+//     at 20 x 256x256 in 0.23 ms on an H100, 29% of the 3xTF32 bound's
+//     rate, where the first port, the FP32 kernel, took 0.92 ms (7.2%);
+//   * wider or deeper trunks: trunk_fwd_kernel on the FP32 pipe, a block a
+//     tile of 64 pixels whose activations live in shared memory as
+//     [channel][68]; each layer a small f32 FMA product, a work item (8
+//     output channels, 1 pixel) per thread, weight reads uniform across a
+//     warp.
 //
 // The backward (trunk_bwd_kernel) runs its three matrix products on the
 // tensor cores as 3xTF32, as K1 (cnn_fwd.cu) does: mma.sync.m16n8k8, f32 +=
@@ -331,6 +338,228 @@ __device__ __forceinline__ void mma3(float* out, const uint32_t* ah, const uint3
   mma(d, ah, bh0, bh1);
 #pragma unroll
   for (int r = 0; r < 4; ++r) out[r] += d[r];
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// The forward runs on the tensor cores (trunk_fwd_mma_kernel) when a
+// warp's activations fit its registers and the mid layers' split weights
+// fit shared memory: f <= 64 (8 n tiles) and (n - 1) f^2 <= 16,384 (hi/lo
+// fragments <= 128 KB).  That takes the flagship (n = 5, f = 32), the
+// train CLI's default trunk and every narrower or shallower one; the rest
+// (f = 72 .. 256, or deeper trunks) run trunk_fwd_kernel on the FP32 pipe.
+// A rule of the shape alone (ops/cnn_train_kernel.py mirrors it).
+constexpr int kMmaMaxTiles = 8;
+constexpr int64_t kMmaMaxMidSquares = 16384;
+constexpr int kFwdWarps = kThreads / 32;
+
+__host__ __device__ inline bool fwd_on_tensor_cores(const Shape& s) {
+  return s.f <= 8 * kMmaMaxTiles &&
+         static_cast<int64_t>(s.n - 1) * s.f * s.f <= kMmaMaxMidSquares;
+}
+
+// Shared floats of trunk_fwd_mma_kernel: the mid layers' B fragments (2 f^2
+// floats a layer), W_0 [ci][f], the biases [n][f], W_f [n f][cout], b_f.
+__host__ __device__ inline int64_t fwd_mma_floats(const Shape& s) {
+  const int64_t nf = static_cast<int64_t>(s.n) * s.f;
+  return 2LL * (s.n - 1) * s.f * s.f + align4(static_cast<int64_t>(s.ci) * s.f) + align4(nf) +
+         align4(nf * s.cout) + align4(s.cout);
+}
+
+// fz[m][half][c] += the fuse's terms of one layer from the lane's h (the
+// accumulator layout), wl = that layer's rows of W_f [f][cout]
+template <int NT, int MT, int CO>
+__device__ __forceinline__ void fuse_layer(const float (&h)[MT][NT][4], float (&fz)[MT][2][CO],
+                                           const float* wl, int cout, int t) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* wo = wl + (8 * nt + 2 * t + (r & 1)) * cout;
+#pragma unroll
+        for (int c = 0; c < CO; ++c)
+          if (c < cout) fz[m][r >> 1][c] = fmaf(h[m][nt][r], wo[c], fz[m][r >> 1][c]);
+      }
+}
+
+// The forward as K1 (cnn_fwd.cu) computes its network, with K7's dynamic
+// n, ci and cout: NT = f / 8 n tiles, MT m tiles of 16 pixels a warp step
+// (two while NT <= 4, so that h and the accumulator stay within 128
+// registers), CO = 1 for one output channel, else 8 with the channels past
+// cout skipped.  Each block splits the mid layers' weights into hi/lo once
+// per launch into shared memory in mma's B-fragment order, the rows of a k
+// block permuted (2t, 2t + 1 for the A columns t, t + 4) so that a layer's
+// accumulator is the next layer's A fragment without a shuffle; the grid
+// is persistent.  A warp step: lane L loads pixel L's ci inputs
+// (channels last, the ragged end read as zeros), shuffles give each lane
+// its rows' inputs, layer 0 runs as float32 FMAs straight into the
+// accumulator layout (from zero over the inputs, then the bias, as
+// trunk_fwd_kernel); layers 1..n-1 as 3xTF32 (mma3: a zeroed accumulator a
+// k block, added to the bias-started sum in float32).  The skip fuse is
+// summed from the registers layer by layer: each lane its partial dot over
+// its columns for each c < cout, a shuffle over the 4 lanes of a row group
+// at the end, and lane t stores the channels c = t (mod 4) of its rows.
+// No ReLU mask is made exact here: the forward's output is continuous in
+// each pre-activation, so a mask flipped within 3xTF32's error of zero
+// moves pre by about that error (the backward rematerialises its own exact
+// masks from x).  No atomics: bitwise repeatable.
+template <int NT, int MT, int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+trunk_fwd_mma_kernel(Shape s, const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ pre) {
+  constexpr int F = 8 * NT;
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float4* frag = smem4;  // [(n - 1)][kb * NT + nt][lane]
+  float* w0 = reinterpret_cast<float*>(frag + static_cast<int64_t>(s.n - 1) * NT * NT * 32);
+  float* bias = w0 + align4(s.ci * F);         // [n][F]
+  float* wf = bias + align4(s.n * F);          // [n F][cout]
+  float* bfs = wf + align4(s.n * F * s.cout);  // [cout]
+  const int cout = CO == 1 ? 1 : s.cout;
+
+  const int64_t nfrag = static_cast<int64_t>(s.n - 1) * NT * NT * 32;
+  for (int64_t e = threadIdx.x; e < nfrag; e += kThreads) {
+    const int lane = static_cast<int>(e & 31), g = lane >> 2, t = lane & 3;
+    const int blk = static_cast<int>((e >> 5) % (NT * NT));
+    const int l = 1 + static_cast<int>((e >> 5) / (NT * NT));
+    const float* W = w + off_w(s, l);
+    const int i = 8 * (blk / NT) + 2 * t, o = 8 * (blk % NT) + g;
+    uint32_t h0, l0, h1, l1;
+    split(W[i * F + o], h0, l0);
+    split(W[(i + 1) * F + o], h1, l1);
+    frag[e] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                          __uint_as_float(l1));
+  }
+  for (int e = threadIdx.x; e < s.ci * F; e += kThreads) w0[e] = w[e];
+  for (int e = threadIdx.x; e < s.n * F; e += kThreads) {
+    const int l = e / F;
+    bias[e] = w[off_w(s, l) + static_cast<int64_t>(fan_in(s, l)) * F + e % F];
+  }
+  const int64_t offf = off_w(s, s.n);
+  for (int e = threadIdx.x; e < s.n * F * cout; e += kThreads) wf[e] = w[offf + e];
+  if (threadIdx.x < cout) bfs[threadIdx.x] = w[offf + s.n * F * cout + threadIdx.x];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  constexpr int kPix = 16 * MT;  // pixels a warp step
+  const int64_t steps = (s.p + kPix - 1) / kPix;
+  for (int64_t step = static_cast<int64_t>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
+       step < steps; step += static_cast<int64_t>(gridDim.x) * kFwdWarps) {
+    const int64_t p0 = step * kPix;
+    // lane L (< kPix) loads pixel p0 + L's inputs
+    float in[kIn];
+#pragma unroll
+    for (int c = 0; c < kIn; ++c)
+      in[c] = (c < s.ci && lane < kPix && p0 + lane < s.p) ? x[(p0 + lane) * s.ci + c] : 0.0f;
+
+    // h[m][nt][r]: pixel 16m + g (r < 2) or 16m + g + 8 (r >= 2), channel
+    // 8nt + 2t + (r & 1): the m16n8 accumulator layout; fz[m][half][c]: the
+    // fuse's partial dot of row g + 8 half of tile m for output c
+    float h[MT][NT][4];
+    float fz[MT][2][CO];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int c = 0; c < CO; ++c) fz[m][half][c] = 0.0f;
+
+    // layer 0 on the FP32 pipe, straight into the accumulator layout
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float xr[2][kIn];
+#pragma unroll
+      for (int c = 0; c < kIn; ++c) {
+        if (c < s.ci) {
+          xr[0][c] = __shfl_sync(kFull, in[c], 16 * m + g);
+          xr[1][c] = __shfl_sync(kFull, in[c], 16 * m + g + 8);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int o = 8 * nt + 2 * t + (r & 1);
+          float a = 0.0f;
+#pragma unroll
+          for (int c = 0; c < kIn; ++c)
+            if (c < s.ci) a = fmaf(xr[r >> 1][c], w0[c * F + o], a);
+          h[m][nt][r] = fmaxf(a + bias[o], 0.0f);
+        }
+    }
+    fuse_layer<NT, MT, CO>(h, fz, wf, cout, t);
+
+    // layers 1..n-1 as 3xTF32 on the tensor cores
+    for (int l = 1; l < s.n; ++l) {
+      const float4* fl = frag + static_cast<int64_t>(l - 1) * NT * NT * 32 + lane;
+      float acc[MT][NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float b0 = bias[l * F + 8 * nt + 2 * t];
+        const float b1 = bias[l * F + 8 * nt + 2 * t + 1];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          acc[m][nt][0] = b0;
+          acc[m][nt][1] = b1;
+          acc[m][nt][2] = b0;
+          acc[m][nt][3] = b1;
+        }
+      }
+#pragma unroll
+      for (int kb = 0; kb < NT; ++kb) {
+        // A fragment of k block kb from n tile kb of h: a0 (g, t) = c0,
+        // a1 (g + 8, t) = c2, a2 (g, t + 4) = c1, a3 (g + 8, t + 4) = c3
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          split(h[m][kb][0], ah[m][0], al[m][0]);
+          split(h[m][kb][2], ah[m][1], al[m][1]);
+          split(h[m][kb][1], ah[m][2], al[m][2]);
+          split(h[m][kb][3], ah[m][3], al[m][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 b = fl[(kb * NT + nt) * 32];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma3(acc[m][nt], ah[m], al[m], b);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) h[m][nt][r] = fmaxf(acc[m][nt][r], 0.0f);
+      fuse_layer<NT, MT, CO>(h, fz, wf + l * F * cout, cout, t);
+    }
+
+    // the fuse's dot over a row group's 4 lanes; lane t stores outputs
+    // c = t (mod 4) of rows g and g + 8 of each tile
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int c = 0; c < CO; ++c) {
+          if (c < cout) {
+            float v = fz[m][half][c];
+            v += __shfl_xor_sync(kFull, v, 1);
+            v += __shfl_xor_sync(kFull, v, 2);
+            fz[m][half][c] = v;
+          }
+        }
+        const int64_t pix = p0 + 16 * m + g + 8 * half;
+        if (pix < s.p) {
+#pragma unroll
+          for (int c = 0; c < CO; ++c)
+            if (c < cout && (c & 3) == t) pre[pix * cout + c] = fz[m][half][c] + bfs[c];
+        }
+      }
+  }
 }
 
 // Element (row r, pixel p) of a backward tile array.
@@ -828,6 +1057,74 @@ int fwd_smem(const Shape& s) {
   return static_cast<int>(sizeof(float) * (s.ci4 + 2 * s.f + s.cout) * kStride);
 }
 
+// One launch of trunk_fwd_mma_kernel: a persistent grid of as many blocks
+// as are resident at once, at most one per 8 warp steps.  The shared-memory
+// attribute and the resident count are set and queried once per device and
+// shared-memory size (a training step launches the forward once, and the
+// host's time per launch counts there).
+template <int NT, int MT, int CO>
+cudaError_t launch_fwd_mma(const Shape& s, const float* x, const float* w, float* pre,
+                           cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  static int known_smem[kDevices] = {0}, resident[kDevices] = {0};
+  const auto kernel = trunk_fwd_mma_kernel<NT, MT, CO>;
+  const int smem = static_cast<int>(sizeof(float) * fwd_mma_floats(s));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  if (known_smem[dev] != smem) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+    known_smem[dev] = smem;
+  }
+  const int64_t steps = (s.p + 16 * MT - 1) / (16 * MT);
+  const int64_t want = (steps + kFwdWarps - 1) / kFwdWarps;
+  kernel<<<static_cast<unsigned>(want < resident[dev] ? want : resident[dev]), kThreads, smem,
+           stream>>>(s, x, w, pre);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_fwd_tiles(const Shape& s, const float* x, const float* w, float* pre,
+                             cudaStream_t stream) {
+  constexpr int MT = NT <= 4 ? 2 : 1;
+  return s.cout == 1 ? launch_fwd_mma<NT, MT, 1>(s, x, w, pre, stream)
+                     : launch_fwd_mma<NT, MT, 8>(s, x, w, pre, stream);
+}
+
+// The forward of a shape: on the tensor cores where fwd_on_tensor_cores
+// admits it, else trunk_fwd_kernel.
+cudaError_t launch_fwd(const Shape& s, const float* x, const float* w, float* pre,
+                       cudaStream_t stream) {
+  if (fwd_on_tensor_cores(s)) {
+    switch (s.f / 8) {
+      case 1: return launch_fwd_tiles<1>(s, x, w, pre, stream);
+      case 2: return launch_fwd_tiles<2>(s, x, w, pre, stream);
+      case 3: return launch_fwd_tiles<3>(s, x, w, pre, stream);
+      case 4: return launch_fwd_tiles<4>(s, x, w, pre, stream);
+      case 5: return launch_fwd_tiles<5>(s, x, w, pre, stream);
+      case 6: return launch_fwd_tiles<6>(s, x, w, pre, stream);
+      case 7: return launch_fwd_tiles<7>(s, x, w, pre, stream);
+      case 8: return launch_fwd_tiles<8>(s, x, w, pre, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const int smem = fwd_smem(s);
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  trunk_fwd_kernel<<<static_cast<unsigned>(s.tiles), kThreads, smem, stream>>>(s, x, w, pre);
+  return cudaGetLastError();
+}
+
 // The backward's memory layout for a grid of `blocks` blocks (no device
 // query); every instantiation of the backward runs with it.  The fast
 // path takes the shapes whose dW tiles fit the warps (two halves each, at
@@ -961,13 +1258,7 @@ extern "C" int rf_cnn_train_fwd(const float* x, const float* w, float* pre, int 
                                 cudaStream_t stream) {
   const Shape s = make_shape(n, ci, f, cout, p);
   if (!valid(s)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = fwd_smem(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(finish(err));
-  trunk_fwd_kernel<<<static_cast<unsigned>(s.tiles), kThreads, smem, stream>>>(s, x, w,
-                                                                               pre);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(finish(launch_fwd(s, x, w, pre, stream)));
 }
 
 // x [p, ci], g [p, cout], w (flat) -> grad (flat, same layout as w) and,

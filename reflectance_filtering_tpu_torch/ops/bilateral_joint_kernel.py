@@ -19,7 +19,11 @@ Each computes, for every pixel p over OpenCV's disk of radius r, with
 reflect-101 borders, and a weight whose form follows the wrapper:
 
   * ``joint_bilateral_planar_batched`` (float values): the TPU kernel's
-    ``w = exp(D^2 * gcc * reps^2 + (dx^2 + dy^2) * gsc)``;
+    ``w = exp(D^2 * gcc * reps^2 + (dx^2 + dy^2) * gsc)``, which the
+    kernel computes as ``2^(lsw[dx^2 + dy^2] - (k D)^2)`` (lsw =
+    :func:`space_log2_weights`, k = :func:`range_scale` applied to the
+    joint values, the power one ex2.approx); the plain version keeps the
+    exp form;
   * the two u8 wrappers (integer levels): cv2's table form, ``w =
     sw[dx^2 + dy^2] * cw[D]`` with cw the float64-built color_weight of
     :func:`~.bilateral.range_weights` over the joint planes (``joint_reps``
@@ -30,9 +34,10 @@ On integer levels the two forms differ only in float32 rounding.  The TPU
 wrappers' ``th``, ``pack`` and ``auto_pack`` choose tile heights and
 mantissa or lane packings that compute this same function; they have no
 counterpart here.  The plain version loops over the disk's taps on whole
-planes in the kernel's tap order with the same weight form; the kernel
-fuses multiply and add, so the two agree to float32 rounding (the uint8
-gate), not bitwise.
+planes in the kernel's tap order with the wrapper's weight form; the
+kernel fuses multiply and add (and the float form takes its weight as one
+ex2 and sums each disk row apart, the rows in four groups of warps), so
+the two agree to float32 rounding (the uint8 gate), not bitwise.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  The u8 wrappers take float32 tensors that hold integers 0-255 (the
@@ -44,6 +49,7 @@ of the repo's sweeps, up to 33, fits them all).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -55,6 +61,9 @@ from .bilateral import (opencv_bilateral_coeffs, pad_reflect101,
 from .bilateral_kernel import _tables
 
 TILE_H, TILE_W = 16, 32               # the float form's kTileH, kTileW
+# the float form (csrc/bilateral_joint_float.cuh): the disk's rows split
+# over 4 groups of warps, each keeping its partial sums for the end
+FLOAT_SPLIT = 4
 # the uint8 form (csrc/bilateral_joint_u8.cuh): 8 pixels a thread, 32 rows
 # of threads, the range table in 2^4 copies
 U8_PIX, U8_ROWS, U8_TABLE_SHIFT = 8, 32, 4
@@ -69,16 +78,20 @@ def _align4(n: int) -> int:
 
 def smem_bytes(cj: int, cs: int, self_guided: bool, u8: bool,
                radius: int) -> int:
-    """Shared memory of one block of the kernel.  Float form: the 16 x 32
-    tile and its halo, for each joint and src plane.  uint8 form
+    """Shared memory of one block of the kernel.  Float form
+    (``smem_bytes`` in csrc/bilateral_joint_float.cuh): the 16 x 32 tile
+    and its halo, for each joint and src plane, or, if larger, the split
+    groups' partial sums (FLOAT_SPLIT - 1 groups, cs + 1 floats a pixel).
+    uint8 form
     (``Geometry`` in csrc/bilateral_joint_u8.cuh): the range table, the
     spatial weights and the word tile, 128 x 32 pixels with its halo (64 x
     32 and two word arrays for cj = cs = 3 with joint != src), each row 8
     runs of ceil(cols / 8) words padded to a pitch congruent to the threads
     across a row modulo 32."""
     if not u8:
-        return ((cj + cs) * (TILE_H + 2 * radius) * (TILE_W + 2 * radius)
-                * 4)
+        return 4 * max((cj + cs) * (TILE_H + 2 * radius)
+                       * (TILE_W + 2 * radius),
+                       (FLOAT_SPLIT - 1) * (cs + 1) * TILE_H * TILE_W)
     split = not self_guided and cj + cs > 4
     threads_x = 8 if split else 16
     cols = threads_x * U8_PIX + 2 * radius
@@ -98,6 +111,36 @@ def max_radius(cj: int, cs: int, self_guided: bool, u8: bool) -> int:
     return r
 
 
+def range_scale(gcc: float, joint_reps: int = 1) -> float:
+    """The float form's scale of the joint values, k = sqrt(-gcc
+    joint_reps^2 log2(e)) in float64 (the launch passes it as float32), so
+    that 2^(-(k D)^2) = exp(D^2 gcc joint_reps^2) (the kernel adds the
+    spatial term :func:`space_log2_weights` in the exponent)."""
+    return math.sqrt(-gcc * float(joint_reps * joint_reps) * math.log2(math.e))
+
+
+def space_log2_weights(radius: int, gauss_space_coeff: float) -> np.ndarray:
+    """The float form's spatial term by squared distance, in the exponent
+    of 2: lsw[s] = f32(s * gauss_space_coeff * log2(e)), s = dx^2 + dy^2 in
+    0..radius^2, in float64 before the cast (so 2^lsw[s] is
+    :func:`~.bilateral.space_weights`' weight to float32 rounding)."""
+    return np.asarray([s * gauss_space_coeff * math.log2(math.e)
+                       for s in range(radius * radius + 1)],
+                      dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _space_table(device: torch.device, radius: int, gsc: float,
+                 log2: bool = True) -> torch.Tensor:
+    """The float form's spatial table (radius^2 + 1) float32 on ``device``:
+    :func:`space_log2_weights` (the product's), or the weights
+    themselves (:func:`~.bilateral.space_weights`, the factored form that
+    scripts/measure_k6_float.py times), uploaded once per parameter
+    set."""
+    table = (space_log2_weights if log2 else space_weights)(radius, gsc)
+    return torch.from_numpy(table).to(device)
+
+
 def check_channels(cj: int, cs: int) -> None:
     """Raise unless the joint and src plane counts have a kernel."""
     if cj not in _CHANNELS or cs not in _CHANNELS:
@@ -109,16 +152,20 @@ def bilateral_joint_plain(joint: torch.Tensor, src: torch.Tensor,
                           radius: int, gcc: float, gsc: float,
                           joint_reps: int = 1, u8: bool = False
                           ) -> torch.Tensor:
-    """Plain version of K6: a loop over the disk's taps on whole planes, in
-    the kernel's order (row by row, dx ascending).  joint [N, cj, H, W],
+    """Plain version of K6: a loop over the disk's taps on whole planes,
+    row by row, dx ascending (the uint8 kernel's order; the float kernel
+    sums each row apart and the rows in four groups).  joint [N, cj, H, W],
     src [N, cs, H, W] -> [N, cs, H, W].  ``u8``: cv2's table form on
     integer levels (the two u8 wrappers), else the exp form with ``gcc *
-    joint_reps^2`` (the float wrapper)."""
+    joint_reps^2`` (the float wrapper).  The sums take src's dtype: on
+    float64 planes they are float64 (the coefficients stay float32), the
+    reference for radii whose float32 running sums over the whole disk
+    drift by more than the kernel's gate."""
     n, cj, h, w = joint.shape
     jp = pad_reflect101(joint, radius)
     sp = jp if src is joint else pad_reflect101(src, radius)
     acc = torch.zeros_like(src)
-    wsum = torch.zeros((n, 1, h, w), dtype=torch.float32, device=src.device)
+    wsum = torch.zeros((n, 1, h, w), dtype=src.dtype, device=src.device)
     if u8:
         cw = torch.from_numpy(range_weights(gcc, joint_reps, cj)).to(
             src.device)
@@ -182,15 +229,18 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
     if n > _GRID_LIMIT:
         raise ValueError("{}: batch {} exceeds the kernel's grid limit of "
                          "{}".format(name, n, _GRID_LIMIT))
-    tables = (_tables(joint.device, radius, joint_reps, gcc, gsc, cj)
-              if u8 else None)
+    if u8:
+        tables = _tables(joint.device, radius, joint_reps, gcc, gsc, cj)
+        coeff = gcc * float(joint_reps * joint_reps)
+    else:
+        tables = _space_table(joint.device, radius, gsc)
+        coeff = range_scale(gcc, joint_reps)
     out = torch.empty_like(src)
     if out.numel():
         _build.launch("rf_bilateral_joint", joint.device, joint.data_ptr(),
-                      src.data_ptr(), out.data_ptr(),
-                      tables.data_ptr() if u8 else None, n, cj, cs, h, w,
-                      int(self_guided), int(u8), radius,
-                      gcc * float(joint_reps * joint_reps), gsc)
+                      src.data_ptr(), out.data_ptr(), tables.data_ptr(), n,
+                      cj, cs, h, w, int(self_guided), int(u8), radius,
+                      coeff, gsc)
         wrapper.launches += 1
     return out
 

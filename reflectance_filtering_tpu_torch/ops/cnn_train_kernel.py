@@ -8,11 +8,13 @@ with ReLU, the skip concat and the fuse conv.  On a CUDA tensor the forward
 and the backward are one kernel launch each (plus the backward's fixed-order
 sum of per-block partials); the backward rematerialises the activations
 instead of storing them and returns every parameter gradient and,
-optionally, the input cotangent.  The forward runs f32 FMAs; the
-backward runs its matrix products (the rematerialisation, the chain and
-the weight gradients) as 3xTF32 on the tensor cores, Hopper's TF32 pieces
-in place of the TPU kernel's bf16x3 splits (its arithmetic is emulated on
-the CPU in tests/test_torch_cnn_train_tf32.py).
+optionally, the input cotangent.  The backward runs its matrix products
+(the rematerialisation, the chain and the weight gradients) as 3xTF32 on
+the tensor cores, Hopper's TF32 pieces in place of the TPU kernel's bf16x3
+splits, and so do the forward's mid layers for the shapes
+:func:`forward_on_tensor_cores` admits (the flagship among them); the
+other shapes' forward runs f32 FMAs (both arithmetics are emulated on the
+CPU in tests/test_torch_cnn_train_tf32.py).
 
 ``trunk_backward_variant`` runs the backward's timing variants (the port
 of scripts/measure_train_bwd_split.py, TPU kernel 19): the same kernel with
@@ -175,12 +177,27 @@ def _require_kernel_shape(shape: Shape) -> None:
                          "{}".format(shape))
 
 
+# The forward's shape rule (fwd_on_tensor_cores in csrc/cnn_train.cu): f <=
+# 64 (8 n tiles of a warp's registers) and (n - 1) f^2 <= 16,384 (the mid
+# layers' hi/lo fragments within 128 KB of shared memory)
+MMA_MAX_F, MMA_MAX_MID_SQUARES = 64, 16384
+
+
+def forward_on_tensor_cores(shape: Shape) -> bool:
+    """Whether the forward of ``shape`` (n, ci, f, cout) runs on the
+    tensor cores (3xTF32, K1's register-resident scheme) rather than the
+    FP32 kernel; a rule of the shape alone, as the kernel's."""
+    n, ci, f, cout = shape
+    return f <= MMA_MAX_F and (n - 1) * f * f <= MMA_MAX_MID_SQUARES
+
+
 def trunk_forward(x: torch.Tensor, flat: torch.Tensor,
                   shape: Shape) -> torch.Tensor:
     """Forward launch: x [P, ci] f32, flat parameters -> pre [P, cout].
 
     A CPU tensor runs :func:`trunk_forward_plain`; a CUDA tensor launches
-    the kernel."""
+    the kernel that :func:`forward_on_tensor_cores` picks (counted in
+    ``trunk_forward.tensor_core_launches`` when it is the 3xTF32 one)."""
     _check(x, flat, shape)
     if x.device.type == "cpu":
         return trunk_forward_plain(x, flat, shape)
@@ -194,10 +211,13 @@ def trunk_forward(x: torch.Tensor, flat: torch.Tensor,
                       flat.data_ptr(), pre.data_ptr(), n, ci, f, cout,
                       x.shape[0])
         trunk_forward.launches += 1
+        trunk_forward.tensor_core_launches += int(
+            forward_on_tensor_cores(shape))
     return pre
 
 
 trunk_forward.launches = 0
+trunk_forward.tensor_core_launches = 0    # of the launches, the 3xTF32 ones
 
 
 @functools.lru_cache(maxsize=64)

@@ -184,6 +184,40 @@ def test_bilateral_joint_u8_at_max_radius(dev, cj, cs, self_guided, reps):
         fn(*args, 2 * r_max + 3, 20.0, 22.0, **kwargs)
 
 
+@pytest.mark.parametrize("cj,cs", [(1, 1), (1, 3), (3, 1), (3, 3)])
+def test_bilateral_joint_float_at_max_radius(dev, cj, cs):
+    """K6's float form at max_radius (its shared memory at the block's
+    limit; the frame smaller than the radius, so reflection repeats) and
+    at radius 33 on a frame with ragged tiles in both directions, on
+    non-integer values, against the plain exp form: within 1 uint8 level,
+    equal on >= 99.9%, 1e-3 in float; at max_radius against the plain
+    version in float64 (the float32 one's running sums over the disk,
+    16,757 taps at radius 73, drift by ~1e-3 themselves); one radius more
+    raises before any launch."""
+    rng = np.random.RandomState(10)
+    r_max = k6.max_radius(cj, cs, False, False)
+    assert r_max >= {(1, 1): 73, (1, 3): 48, (3, 1): 48, (3, 3): 37}[cj, cs]
+    fn = k6.joint_bilateral_planar_batched
+    for (n, h, w), radius in (((1, 40, 52), r_max), ((2, 70, 150), 33)):
+        joint, src = (torch.from_numpy((rng.rand(n, c, h, w) * 255).astype(
+            np.float32)).to(dev) for c in (cj, cs))
+        before = fn.launches
+        got = fn(joint, src, 2 * radius + 1, 20.0, 22.0)
+        assert fn.launches == before + 1
+        _, gcc, gsc = k6.opencv_bilateral_coeffs(2 * radius + 1, 20.0, 22.0)
+        if radius == r_max:
+            exp = k6.bilateral_joint_plain(joint.double(), src.double(),
+                                           radius, gcc, gsc).float()
+        else:
+            exp = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc)
+        d = (torch.round(got) - torch.round(exp)).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+        assert (got - exp).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="largest radius .* is {}".format(
+            r_max)):
+        fn(joint, src, 2 * r_max + 3, 20.0, 22.0)
+
+
 def test_bilateral_joint_kernel_refuses_too_large_a_radius(dev):
     """Float 3 + 3 planes at sigma_s 30 (radius 45) need 310 KB of shared
     memory: a ValueError naming radius 37, before any launch."""
@@ -385,14 +419,19 @@ def _k7_inputs(dev, shape, p, seed=0):
 
 @pytest.mark.parametrize("shape,p", K7_CASES)
 def test_trunk_kernels_match_plain(dev, shape, p):
-    """K7 forward against the plain trunk (1e-5 relative), its backward
-    against plain autograd: each parameter gradient within 2e-4 of its
-    leaf's max (the JAX package's gate for its fused trunk), dx within
-    5e-5; two backward launches bitwise equal; input_grad=False leaves the
-    parameter gradient bitwise unchanged."""
+    """K7 forward against the plain trunk (1e-5 relative) through the
+    kernel its shape takes (counted on the tensor cores for the shapes
+    forward_on_tensor_cores admits), its backward against plain autograd:
+    each parameter gradient within 2e-4 of its leaf's max (the JAX
+    package's gate for its fused trunk), dx within 5e-5; two backward
+    launches bitwise equal; input_grad=False leaves the parameter gradient
+    bitwise unchanged."""
     x, cot, flat = _k7_inputs(dev, shape, p)
     before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
+    tc_before = k7.trunk_forward.tensor_core_launches
     pre = k7.trunk_forward(x, flat, shape)
+    assert k7.trunk_forward.tensor_core_launches == tc_before + int(
+        k7.forward_on_tensor_cores(shape))
     exp = k7.trunk_forward_plain(x, flat, shape)
     assert (pre - exp).abs().max().item() <= 1e-5 * exp.abs().max().item()
     grad, dx = k7.trunk_backward(x, cot, flat, shape, True)
@@ -406,6 +445,21 @@ def test_trunk_kernels_match_plain(dev, shape, p):
     assert (dx - edx).abs().max().item() <= 5e-5 * edx.abs().max().item()
     grad2, none = k7.trunk_backward(x, cot, flat, shape, False)
     assert none is None and torch.equal(grad, grad2)
+
+
+def test_trunk_forward_cases_take_both_kernels(dev):
+    """K7_CASES reach both forward kernels: the tensor cores' for the
+    flagship and the narrow trunks, the FP32 one for the wide trunks; the
+    forward is bitwise repeatable on each."""
+    kinds = set()
+    for shape, p in K7_CASES:
+        x, _, flat = _k7_inputs(dev, shape, p, seed=5)
+        before = k7.trunk_forward.tensor_core_launches
+        pre = k7.trunk_forward(x, flat, shape)
+        kinds.add(k7.trunk_forward.tensor_core_launches - before)
+        assert torch.equal(pre, k7.trunk_forward(x, flat, shape))
+    assert kinds == {0, 1}
+    assert k7.forward_on_tensor_cores(K7_CASES[0][0])
 
 
 def test_trunk_through_apply_network(dev):
