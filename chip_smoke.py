@@ -19,16 +19,20 @@ Phases (any failure exits nonzero before the result line):
               and so do K7's backward and every instantiation of its
               tensor-core forward, its FP32 forward none (each
               instantiation's HMMA count printed); the F2F.F64.F32
-              conversions of K5's and K9's row passes are counted per
-              kernel;
+              conversions of K4's, K5's and K9's row passes (K4's and K5's
+              fused forms among them) are counted per kernel;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
               --subsample=4 planes; the joint bilateral K6 at the JAX
               bench's 8 x 256x256, c20 s22: color-self, BF(reflectance,
               photo), both in cv2's table form, float with a 3-plane joint;
-              each float pairing at its largest radius and at sigma_s = 3),
-              plus degenerate shapes,
+              each float pairing at its largest one-band radius, one past
+              it (the banded kernel) and at sigma_s = 3), plus degenerate
+              shapes; K2 in both forms and all nine K6 instantiations at
+              sigma_s = 80 (radius 120: the disk's rows in bands) on
+              1 x 192x256; K4 by both forms and K5 by both paths (the
+              fused ones where they take the width),
               gated (K2 on each input as uint8 levels, cv2's table form,
               and as float32, the exp form; K5 also at C=3 with r=300 and
               r=1300, whose row blocks narrow to fit their staging, against
@@ -96,7 +100,10 @@ Phases (any failure exits nonzero before the result line):
               guided by the photo and on the photo by itself (the last two
               held against the same call on the CPU), guided c3 s45, and
               guided with --subsample=4 (the box kernel's path, held
-              against the same filter on the CPU); and
+              against the same filter on the CPU); bilateral at
+              --sigma_spatial 80 (radius 120: K6 in bands) on a 96x128
+              photo by itself and guided by another photo, each held
+              against the same call on the CPU; and
               joint_bilateral_filter_fast, the float filter's entry point
               (the width-sharded filter's, not ported yet), called
               directly and held against the CPU;
@@ -122,10 +129,14 @@ Phases (any failure exits nonzero before the result line):
               (reflectance_filtering_tpu_torch/scripts/
               measure_train_bwd_split.py: each variant's median ms, each
               phase's delta beside its bound, the product backward's time
-              and each instantiation's registers) (not gated);
+              and each instantiation's registers), and K5's two paths and
+              K4's two forms in turns over bands and frame shapes
+              (reflectance_filtering_tpu_torch/scripts/
+              measure_box_guided.py) (not gated);
   7. profile  each slice's, the training step's and the 4K chain's device
               busy time and per-kernel device times (torch.profiler), and
-              the idle share against phase 6's time in the same run; K3's
+              the idle share against phase 6's time in the same run; K4's
+              and K5's calls split into their kernels by each path; K3's
               device time at 32 x 1181 beside indexing's, and the host's
               microseconds per K3 call split into checks, allocation and
               launch (host clock around 1,000 calls) (not gated).
@@ -163,6 +174,8 @@ import torch
 
 B, H, W, K = 32, 256, 256, 1181       # the main path's shapes
 SIGMA_C, SIGMA_S = 20.0, 22.0
+BAND_SIGMA_S = 80.0                   # radius 120: the bilateral kernels' bands
+BAND_SHAPE = (1, 192, 256)            # ... on planes of this shape
 K2_SUBSET = 4                         # images for the slow plain bilateral
 BF_N = 8                              # K6 batch: the JAX bench's (bench.py:458)
 K6_SUBSET = 2                         # images for K6's plain versions
@@ -621,11 +634,13 @@ def main():
     from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
         bilateral_color_self_batched, bilateral_joint_plain,
         bilateral_packed_joint_batched, joint_bilateral_filter_fast,
-        joint_bilateral_planar_batched, max_radius, opencv_bilateral_coeffs)
+        joint_bilateral_planar_batched, one_band_radius,
+        opencv_bilateral_coeffs)
     from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
         bilateral_gray_self, bilateral_gray_self_plain)
     from reflectance_filtering_tpu_torch.ops.box_kernel import (
-        box_filter_planar, box_filter_planar_plain)
+        FUSED_WIDEST as BOX_WIDEST, box_filter_planar,
+        box_filter_planar_plain)
     from reflectance_filtering_tpu_torch.ops.guided import (
         fast_guided_filter_u8, guided_filter_iterated, guided_filter_u8)
     from reflectance_filtering_tpu_torch.ops.guided_chain_kernel import (
@@ -633,7 +648,7 @@ def main():
         guided_apply_cached_plain, guided_filter_chain,
         guided_filter_chain_plain)
     from reflectance_filtering_tpu_torch.ops.guided_kernel import (
-        guided_filter_fused, guided_filter_fused_plain)
+        fused_fits, guided_filter_fused, guided_filter_fused_plain)
     from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
         pack_weights, reflectance_cnn, reflectance_cnn_plain)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
@@ -652,6 +667,7 @@ def main():
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
+        measure_box_guided as box_guided,
         measure_k2_table as k2_table, measure_k6_float as k6_float,
         measure_k6_table as k6_table,
         measure_k9_passes as k9_passes,
@@ -786,20 +802,30 @@ def main():
           and "fwd" in k7_hmma and not k7_hmma["fwd"][1],
           "K7's forward issues HMMA .TF32 in each of its 16 tensor-core "
           "instantiations and none in its FP32 kernel")
-    # the row passes of K5 and K9 convert each staged value to float64
-    # once: their F2F.F64.F32 per kernel (the staging's and the first
-    # window's, none per tap)
+    # the row passes of K4, K5 and K9 convert each value to float64 once:
+    # their F2F.F64.F32 per kernel (the staging's and the first window's,
+    # none per tap); K5's fused pair converts each raw value it reads (the
+    # products are formed in float64) and K4's fused form each value read
     f2f = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0]
         for kernel in ("gc_stats_rows", "gc_solve_cached_rows",
-                       "gf_apply_rows", "gf_solve_rows"):
+                       "gf_apply_rows", "gf_solve_rows", "gf_fused_kernel",
+                       "box_row_kernel", "box_fused_kernel"):
             if kernel in name:
-                tag = kernel + ("<{}>".format(name.split("ILi")[1][0])
-                                if "ILi" in name else "")
-                tag += " (K5)" if "guided_cu" in name else " (K9)"
+                targs = re.findall(r"(?:Li|Lb)(\d+)E",
+                                   name.split(kernel)[1])
+                tag = kernel + ("<{}>".format(", ".join(targs)) if targs
+                                else "")
+                tag += (" (K4)" if "box_" in kernel else
+                        " (K5)" if "guided_cu" in name else " (K9)")
                 f2f[tag] = fn.count("F2F.F64.F32")
-    print("F2F.F64.F32 per row-pass kernel:", f2f)
+    print("F2F.F64.F32 per row-pass kernel:", dict(sorted(f2f.items())))
+    check(any("box_row_kernel" in t for t in f2f)
+          and any("box_fused_kernel" in t for t in f2f)
+          and sum("gf_fused_kernel" in t for t in f2f) == 12,
+          "the F2F count covers K4's row kernels and K5's 12 fused "
+          "instantiations")
 
     phase("3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)
@@ -864,6 +890,25 @@ def main():
                       "K2 {} {}: <= 1e-3, <= 1 uint8 level, >= 99.9% "
                       "equal".format(name, form))
         errs["bilateral_gray_self"] = worst
+        # K2 at sigma_s 80 (radius 120): past its one-band kernel's shared
+        # memory in both forms, the disk's rows in bands
+        band_rng = np.random.RandomState(args.seed + 5)
+        band_planes = torch.from_numpy(np.floor(
+            band_rng.rand(*BAND_SHAPE) * 256).astype(np.float32)).to(dev)
+        for form in (torch.uint8, torch.float32):
+            x_in = band_planes.to(form)
+            qk = bilateral_gray_self(x_in, -1, SIGMA_C, BAND_SIGMA_S)
+            qp = bilateral_gray_self_plain(x_in, -1, SIGMA_C, BAND_SIGMA_S)
+            torch.cuda.synchronize()
+            err = (qk - qp).abs().max().item()
+            dl = (u8(qk) - u8(qp)).abs()
+            eq = (dl == 0).float().mean().item()
+            print("K2 {} r=120 (in bands) {}: max|d|={:.3e}  uint8 max {:.0f} "
+                  "level, {:.4%} equal".format("x".join(map(str, BAND_SHAPE)),
+                                               form, err, dl.max().item(), eq))
+            check(err <= 1e-3 and dl.max().item() <= 1 and eq >= 0.999,
+                  "K2 r=120 {}: <= 1e-3, <= 1 uint8 level, >= 99.9% "
+                  "equal".format(form))
 
         plane = (u8(bilateral_gray_self(r_levels, -1, SIGMA_C, SIGMA_S))
                  / 255.0).contiguous()
@@ -889,20 +934,24 @@ def main():
                   "1x2160x3840": (seeded(*BIG_PLANE), GF_R),
                   "13x64x64": (seeded(13, H // 4, W // 4), 11),
                   "1x20x27": (seeded(1, 20, 27), GF_R)}
+        # each shape by both forms where the fused one takes its rows
         worst = 0.0
         for name, (planes, radius) in box_in.items():
-            for border in ("reflect", "reflect101"):
-                bk = box_filter_planar(planes, radius, border)
+            forms = (("fused", "two-pass") if planes.shape[2] <= BOX_WIDEST
+                     else ("two-pass",))
+            for border, form in ((b_, f_) for b_ in ("reflect", "reflect101")
+                                 for f_ in forms):
+                bk = box_filter_planar(planes, radius, border, path=form)
                 bp = box_filter_planar_plain(planes, radius, border)
                 torch.cuda.synchronize()
                 err = (bk - bp).abs().max().item()
                 tol = box_tol(planes.shape, radius)
                 if name == "32x256x256":
                     worst = max(worst, err)
-                print("K4 {} r={} {}: max|d|={:.3e} (gate {:.3e})".format(
-                    name, radius, border, err, tol))
-                check(err <= tol, "K4 {} {} within 8 float32 ulps of the "
-                      "plain block partials".format(name, border))
+                print("K4 {} r={} {} {}: max|d|={:.3e} (gate {:.3e})".format(
+                    name, radius, border, form, err, tol))
+                check(err <= tol, "K4 {} {} {} within 8 float32 ulps of the "
+                      "plain block partials".format(name, border, form))
         errs["box_filter"] = worst
 
         # K5: the gf path's shapes, C=1 (the served reflectance) and C=3,
@@ -918,9 +967,14 @@ def main():
                 torch.from_numpy(np.floor(grng.rand(1, k, *shape) * 256)
                                  .astype(np.float32)).to(dev)
                 for k in (3, c)) + (radius,)
+        # each case by both paths where the fused pair takes its width
         worst = 0.0
-        for name, (g_in, s_in, radius) in gf_in.items():
-            qk = guided_filter_fused(g_in, s_in, radius, GF_EPS)
+        for (name, (g_in, s_in, radius)), path in (
+                (case, path) for case in gf_in.items()
+                for path in (("fused", "four-pass") if fused_fits(
+                    min(case[1][1].shape[1], 3), case[1][1].shape[3])
+                    else ("four-pass",))):
+            qk = guided_filter_fused(g_in, s_in, radius, GF_EPS, path=path)
             if name in ("C=1", "C=3"):
                 qp = guided_filter_fused_plain(g_in, s_in, radius, GF_EPS)
             else:   # float32's box partials would swamp a wide window
@@ -932,12 +986,13 @@ def main():
                 worst = max(worst, err)
             dl = (u8(qk) - u8(qp)).abs()
             eq = (dl == 0).float().mean().item()
-            print("K5 {} r={} eps={}: max|d|={:.3e}  uint8 max {:.0f} level, "
-                  "{:.4%} equal".format(name, radius, GF_EPS, err,
-                                        dl.max().item(), eq))
-            check(err <= 0.05, "K5 {}: max|d| <= 0.05".format(name))
+            print("K5 {} {} r={} eps={}: max|d|={:.3e}  uint8 max {:.0f} "
+                  "level, {:.4%} equal".format(name, path, radius, GF_EPS,
+                                               err, dl.max().item(), eq))
+            check(err <= 0.05, "K5 {} {}: max|d| <= 0.05".format(name, path))
             check(dl.max().item() <= 1 and eq >= 0.999,
-                  "K5 {}: <= 1 uint8 level, >= 99.9% equal".format(name))
+                  "K5 {} {}: <= 1 uint8 level, >= 99.9% equal".format(
+                      name, path))
         errs["guided_filter"] = worst
 
         # K9: the 3x chain on the JAX bench's 4K frame (a photo guiding
@@ -1062,9 +1117,10 @@ def main():
         # at radius 73, printed beside) and at sigma_s = 3 on ragged tiles,
         # radius 4
         for cj, cs in ((1, 1), (1, 3), (3, 1), (3, 3)):
-            r_max = max_radius(cj, cs, False, False)
+            r_max = one_band_radius(cj, cs, False, False)
             for (n_, h_, w_), d, sigma_s in (
                     ((1, 40, 52), 2 * r_max + 1, SIGMA_S),
+                    ((1, 40, 52), 2 * r_max + 3, SIGMA_S),
                     ((2, 37, 70), -1, 3.0)):
                 j, s_ = floats(n_, cj, h_, w_), floats(n_, cs, h_, w_)
                 qk = joint_bilateral_planar_batched(j, s_, d, SIGMA_C,
@@ -1088,6 +1144,47 @@ def main():
                 check(err <= 1e-3 and dl.max().item() <= 1 and eq >= 0.999,
                       "{}: <= 1e-3, <= 1 uint8 level, >= 99.9% equal".format(
                           what))
+        # every instantiation of K6 at sigma_s 80 (radius 120, past every
+        # one-band kernel: the disk's rows in bands); the uint8 form against
+        # its float32 plain version (the same tap order), the float form
+        # against the plain version in float64
+        for instance in K6_INSTANCES:
+            cj, cs, self_guided, u8_tile = instance
+            planes_ = {(u8_tile, c): (torch.floor(torch.from_numpy(
+                band_rng.rand(BAND_SHAPE[0], c, *BAND_SHAPE[1:]) * 256))
+                if u8_tile else torch.from_numpy(band_rng.rand(
+                    BAND_SHAPE[0], c, *BAND_SHAPE[1:]) * 255)).float().to(dev)
+                for c in (1, 3)}
+            j, s_ = planes_[(u8_tile, cj)], planes_[(u8_tile, cs)]
+            if self_guided:
+                qk = bilateral_color_self_batched(j, -1, SIGMA_C,
+                                                  BAND_SIGMA_S)
+                s_ = j
+            elif u8_tile:
+                qk = bilateral_packed_joint_batched(j, s_, -1, SIGMA_C,
+                                                    BAND_SIGMA_S)
+            else:
+                qk = joint_bilateral_planar_batched(j, s_, -1, SIGMA_C,
+                                                    BAND_SIGMA_S)
+            coeffs = opencv_bilateral_coeffs(-1, SIGMA_C, BAND_SIGMA_S)
+            if u8_tile:
+                qp = bilateral_joint_plain(j, s_, *coeffs, u8=True)
+            else:
+                qp = bilateral_joint_plain(j.double(), s_.double(),
+                                           *coeffs).float()
+            torch.cuda.synchronize()
+            err = (qk - qp).abs().max().item()
+            dl = (u8(qk) - u8(qp)).abs()
+            eq = (dl == 0).float().mean().item()
+            what = "K6 {} cj={} cs={}{} r={} {} (in bands)".format(
+                "u8" if u8_tile else "float", cj, cs,
+                " self" if self_guided else "", coeffs[0],
+                "x".join(map(str, BAND_SHAPE)))
+            print("{}: max|d|={:.3e}  uint8 max {:.0f} level, {:.4%} "
+                  "equal".format(what, err, dl.max().item(), eq))
+            check(err <= 1e-3 and dl.max().item() <= 1 and eq >= 0.999,
+                  "{}: <= 1e-3, <= 1 uint8 level, >= 99.9% equal".format(
+                      what))
 
     phase("3t. training kernels vs plain on the card")
     train_errs, train_in = check_training_kernels(dev, args.seed)
@@ -1176,6 +1273,9 @@ def main():
     def reset_launches():
         for fn in wrappers.values():
             fn.launches = 0
+        # the fused forms' launches, counted apart (K4, K5)
+        box_filter_planar.fused_launches = 0
+        guided_filter_fused.fused_launches = 0
 
     def read_launches(run, names):
         torch.cuda.synchronize()
@@ -1227,6 +1327,11 @@ def main():
             gf_served.append((q, whdr_batch(q / 255.0, cmp)))
         gf_launches = read_launches("gf serving", (
             "cnn_fwd", "guided_filter", "whdr_gather"))
+        print("K5's fused launches in the gf serving run: {}".format(
+            guided_filter_fused.fused_launches))
+        check(guided_filter_fused.fused_launches
+              == gf_launches["guided_filter"],
+              "every K5 launch of the gf serving run took the fused pair")
         for (q, score), img, cmp in zip(gf_served, gf_requests, comps):
             check(q.shape == (B, H, W) and bool(torch.isfinite(q).all())
                   and q.min().item() >= 0 and q.max().item() <= 255,
@@ -1488,6 +1593,39 @@ def main():
             check(d <= 1, "bilateral CLI {} within 1 level of the same call "
                   "on the CPU (max {})".format(case, d))
 
+        # the bilateral CLI at --sigma_spatial 80 (radius 120, past every
+        # one-band kernel: K6 takes the disk's rows in bands) on 96x128
+        # photos: a photo by itself, and a photo guided by another (color
+        # on color); each file against the same call on the CPU
+        band_dir = os.path.join(tmp, "bands")
+        os.mkdir(band_dir)
+        small = [np.moveaxis(p_, 0, -1) for p_ in photos(rng, 2, 96, 128)]
+        small_png = [os.path.join(band_dir, "photo{}.png".format(i))
+                     for i in range(2)]
+        for path_, img_ in zip(small_png, small):
+            cv2.imwrite(path_, img_)
+        for case, (src_png, counter) in {
+                "color-self": (small_png[0], "bilateral_color_self"),
+                "color on color": (small_png[1],
+                                   "bilateral_packed_joint")}.items():
+            reset_launches()
+            filt_cli.main(["--filter_type=bilateral", "--sigma_color=20",
+                           "--sigma_spatial={}".format(BAND_SIGMA_S),
+                           "--filename_in", src_png, "--guidance_in",
+                           small_png[0], "--path_out", band_dir,
+                           "--device", "cuda"])
+            read_launches("bilateral CLI sigma_s 80 " + case, (counter,))
+            name = os.path.basename(src_png)[:-4] + \
+                "_bilateral_c20.0s{}.png".format(BAND_SIGMA_S)
+            got = cv2.imread(os.path.join(band_dir, name)).astype(int)
+            want = filt_cli.apply_filter(
+                "bilateral", cv2.imread(src_png), cv2.imread(small_png[0]),
+                20.0, BAND_SIGMA_S, device="cpu")
+            d = np.abs(got - want.astype(int)).max()
+            check(d <= 1, "bilateral CLI --sigma_spatial 80 {} on cuda within "
+                  "1 level of the same call on the CPU (max {})".format(case,
+                                                                        d))
+
         # the float filter's entry point (the width-sharded filter calls
         # it in the JAX package), called directly: photo joint, gray src
         reset_launches()
@@ -1688,6 +1826,9 @@ def main():
                   mp / k5x3_ms[name] * 1e3))
     print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
 
+    phase("6. K5's two paths and K4's two forms, in turns, bands and widths")
+    box_guided.print_tables(box_guided.measure(dev, args.seed))
+
     phase("6. K9's passes apart, the column passes at each segment length")
     k9_passes.print_table(k9_passes.measure(dev, args.seed))
 
@@ -1729,6 +1870,8 @@ def main():
             for kernel, ms in sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1])[:12]:
                 print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
+    # K4 and K5 split into their kernels, each path and form
+    box_guided.print_split(box_guided.profile(dev, args.seed))
     k7_before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
     busy, per_kernel = device_profile(lambda: step(*step_in),
                                       PROFILE_BATCHES)

@@ -51,7 +51,13 @@
 //     16 warps, two blocks per SM; the float blocks, which hold no table,
 //     16 x 16 threads over a 16 x 64 tile (their floats fit up to r = 100);
 //   * borders are reflected by index while the tile loads, only for
-//     indices outside the plane (reflect101, shared with K6).
+//     indices outside the plane (reflect101, shared with K6);
+//   * a radius whose tile, halo and tables pass a block's shared memory
+//     takes the disk's rows in bands (bilateral_gray_self_banded_kernel):
+//     each band stages only the tile rows its disk rows read, and the
+//     spatial weights are read from device memory; the taps keep their
+//     order, so the sums are the one-band kernel's.  The product's radii
+//     (33 and below) run in one band.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,15 +66,18 @@
 // x [n, h, w] uint8 (u8 = 1) or f32 (u8 = 0), out [n, h, w] f32, tables
 // [256 + radius^2 + 1] f32 (uint8 input only: cw by |d|, then sw by
 // dx^2 + dy^2), all on the device; g2 = reps^2 * gcc (the float form's).
-// Returns the cudaError_t of the attribute call or of the launch: a radius
-// whose shared memory does not fit in a block's 227 KB (float input: r >
-// 100; uint8: r > 113) fails there with cudaErrorInvalidValue.
+// Returns the cudaError_t of the attribute call or of the launch.  Any
+// radius runs: where the tile and its halo (and, for uint8, the tables)
+// pass a block's 227 KB (float input: r > 100; uint8: r > 113), the disk's
+// rows are taken in bands (k2::band_rows; cudaErrorInvalidValue only where
+// not one disk row fits: float radii past
+// about 1,780, uint8 past about 2,500).
 extern "C" int rf_bilateral_gray_self(const void* x, float* out, const float* tables,
                                       int n, int h, int w, int u8, int radius, float g2,
                                       float gsc, cudaStream_t stream) {
   if (u8)
-    return k2::launch<uint8_t, k2::RangeTable, 8, 32>(x, out, tables, n, h, w, radius, g2,
-                                                      gsc, stream);
-  return k2::launch<float, k2::RangeTable, 4, 16>(x, out, tables, n, h, w, radius, g2, gsc,
-                                                  stream);
+    return k2::launch_any_radius<uint8_t, k2::RangeTable, 8, 32>(x, out, tables, n, h, w,
+                                                                 radius, g2, gsc, stream);
+  return k2::launch_any_radius<float, k2::RangeTable, 4, 16>(x, out, tables, n, h, w, radius,
+                                                             g2, gsc, stream);
 }

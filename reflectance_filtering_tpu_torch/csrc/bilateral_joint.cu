@@ -54,7 +54,7 @@
 //     row's sums kept apart and added to its group's, the groups' added in
 //     order at the end, so the SM, which holds one block at r = 33 and
 //     cj + cs = 4 (128 KB), keeps 16 warps.  The footprint, and so each
-//     pairing's largest radius, is the first port's.
+//     pairing's largest one-band radius, is the first port's.
 //     scripts/measure_k6_float.py times other geometries, the factored
 //     weight sw[s] * 2^(-(k D)^2) and the first port (PERF.md).
 //   * The uint8 form (bilateral_joint_u8.cuh), K2's design with several
@@ -78,6 +78,12 @@
 //     and lost BF(reflectance, photo) by 15-16% (PERF.md).  With the 128 x
 //     32 tile (76 KB of words at r = 33) one block of 16 warps fills an
 //     SM, and 8 x 256x256 is 128 blocks: one wave on 132 SMs.
+//   * Both forms take any radius.  Where a pairing's tile and halo (and,
+//     in the uint8 form, its tables) would pass a block's 227 KB, the
+//     disk's rows are taken in bands (each form's banded kernel): a band
+//     stages only the tile rows its disk rows read, the uint8 form reads
+//     its spatial weights from device memory, and a pixel's taps keep
+//     their order, so the sums are the one-band kernel's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,16 +101,20 @@
 // the device and gcc = k = sqrt(-(range coefficient) joint_reps^2
 // log2(e)), the scale of the joint values (gsc unread).  Returns the
 // cudaError_t of the attribute call or of the launch
-// (cudaErrorInvalidValue for a pairing that has no instantiation); the
-// wrapper keeps the shared memory within the 227 KB a block can take.
+// (cudaErrorInvalidValue for a pairing that has no instantiation).  Any
+// radius runs: where a pairing's tile and halo (and tables) pass the 227
+// KB a block can take, the disk's rows are taken in bands (band_rows in
+// each form's header; the product's radius, 33, is one band in every
+// pairing).
 extern "C" int rf_bilateral_joint(const float* joint, const float* src,
                                   float* out, const float* tables, int n, int cj,
                                   int cs, int h, int w, int self_guided, int u8,
                                   int radius, float gcc, float gsc,
                                   cudaStream_t stream) {
   if (u8)
-    return k6u8::launch_any<4>(cj, cs, self_guided, joint, src, out, tables, n, h, w,
-                               radius, stream);
+    return k6u8::launch_any_radius<4>(cj, cs, self_guided, joint, src, out, tables, n, h, w,
+                                      radius, stream);
   if (self_guided) return static_cast<int>(cudaErrorInvalidValue);
-  return k6f::launch_any<4, 4, true>(cj, cs, joint, src, out, tables, n, h, w, radius, gcc, stream);
+  return k6f::launch_any_radius<4, 4, true>(cj, cs, joint, src, out, tables, n, h, w, radius,
+                                            gcc, stream);
 }

@@ -95,19 +95,62 @@ __device__ __forceinline__ void load(const uint32_t* row, int split_ofs, int m, 
 // pixels; q, sv hold the window from column dx of pixel 0; sw is offset
 // by dy^2.  w = sw[dx^2 + dy^2] * cw[sum_c |delta|], sum_c |delta| one
 // __vsadu4 of the packed joint bytes.
-template <int CS, int kShift, int kSteps>
+template <int CS, int kShift, int kSteps, bool kGlobalSw>
 __device__ __forceinline__ void taps(const uint32_t* q, float (*sv)[CS], const float* sw,
                                      int dx, const float* base, const uint32_t* cen,
                                      float (*acc)[CS], float* wsum) {
 #pragma unroll
   for (int j = 0; j < kSteps; ++j) {
-    const float sp = sw[(dx + j) * (dx + j)];  // the same address in every thread
+    // the same address in every thread
+    const float sp = spatial<kGlobalSw>(sw, (dx + j) * (dx + j));
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
       const float wgt = sp * base[__vsadu4(q[j + k], cen[k]) << kShift];
 #pragma unroll
       for (int c = 0; c < CS; ++c) acc[k][c] = fmaf(wgt, sv[j + k][c], acc[k][c]);
       wsum[k] += wgt;
+    }
+  }
+}
+
+// One disk row dy (its taps dx ascending) for the thread's kPix pixels; row
+// points at the row's word of the thread's first tile column, split_ofs
+// at the split pairing's src words.  A window of kWin columns slides 4 at
+// a time, so a word read from shared memory and its src levels serve all
+// kPix pixels, and so does a spatial weight (one address in the whole
+// warp: a broadcast).
+template <typename G, int CS, bool SELF, int kShift, bool kGlobalSw>
+__device__ __forceinline__ void disk_row(const uint32_t* row, int split_ofs, int dy, int r2,
+                                         int radius, int seg, const float* sw,
+                                         const float* base, const uint32_t* cen,
+                                         float (*acc)[CS], float* wsum) {
+  const int dy2 = dy * dy;
+  const int dxm = disk_half_width(r2 - dy2);
+  uint32_t q[kWin];
+  float sv[kWin][CS];
+  int dx = -dxm;
+#pragma unroll
+  for (int j = 0; j < kPix - 1; ++j) load<G, CS, SELF>(row, split_ofs, radius + dx + j, seg, q[j], sv[j]);
+  for (; dx + 3 <= dxm; dx += 4) {
+#pragma unroll
+    for (int j = kPix - 1; j < kWin; ++j)
+      load<G, CS, SELF>(row, split_ofs, radius + dx + j, seg, q[j], sv[j]);
+    taps<CS, kShift, 4, kGlobalSw>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
+#pragma unroll
+    for (int j = 0; j < kPix - 1; ++j) {
+      q[j] = q[j + 4];
+#pragma unroll
+      for (int c = 0; c < CS; ++c) sv[j][c] = sv[j + 4][c];
+    }
+  }
+  for (; dx <= dxm; ++dx) {
+    load<G, CS, SELF>(row, split_ofs, radius + dx + kPix - 1, seg, q[kPix - 1], sv[kPix - 1]);
+    taps<CS, kShift, 1, kGlobalSw>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
+#pragma unroll
+    for (int j = 0; j < kPix - 1; ++j) {
+      q[j] = q[j + 1];
+#pragma unroll
+      for (int c = 0; c < CS; ++c) sv[j][c] = sv[j + 1][c];
     }
   }
 }
@@ -188,10 +231,9 @@ bilateral_joint_u8_kernel(const float* __restrict__ joint, const float* __restri
   }
 
   // the disk row by row, dx ascending, in every thread alike (the plain
-  // version's order); along a row a window of kWin columns slides 4 at a
-  // time, so a word read from shared memory and its src levels serve all
-  // kPix pixels, and so does a spatial weight (one address in the whole
-  // warp: a broadcast)
+  // version's order)
+  // (disk_row's loop written out: calling it measured ~2% slower at radius
+  // 33 on an H100, scripts/measure_box_guided.py --compare)
   for (int dy = -radius; dy <= radius; ++dy) {
     const int dy2 = dy * dy;
     const int dxm = disk_half_width(r2 - dy2);
@@ -205,7 +247,7 @@ bilateral_joint_u8_kernel(const float* __restrict__ joint, const float* __restri
 #pragma unroll
       for (int j = kPix - 1; j < kWin; ++j)
         load<G, CS, SELF>(row, rows * pitch, radius + dx + j, seg, q[j], sv[j]);
-      taps<CS, kShift, 4>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
+      taps<CS, kShift, 4, false>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
 #pragma unroll
       for (int j = 0; j < kPix - 1; ++j) {
         q[j] = q[j + 4];
@@ -215,7 +257,7 @@ bilateral_joint_u8_kernel(const float* __restrict__ joint, const float* __restri
     }
     for (; dx <= dxm; ++dx) {
       load<G, CS, SELF>(row, rows * pitch, radius + dx + kPix - 1, seg, q[kPix - 1], sv[kPix - 1]);
-      taps<CS, kShift, 1>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
+      taps<CS, kShift, 1, false>(q, sv, sw + dy2, dx, base, cen, acc, wsum);
 #pragma unroll
       for (int j = 0; j < kPix - 1; ++j) {
         q[j] = q[j + 1];
@@ -224,6 +266,131 @@ bilateral_joint_u8_kernel(const float* __restrict__ joint, const float* __restri
       }
     }
   }
+  float* o = out + blockIdx.z * CS * plane + static_cast<size_t>(oy) * w + ox;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (ox + k >= w) break;
+#pragma unroll
+    for (int c = 0; c < CS; ++c) o[c * plane + k] = acc[k][c] / wsum[k];
+  }
+}
+
+// The banded kernel's shared memory for bands of `band` disk rows: the
+// range table and the band's tile rows (band + kThreadsY - 1) of word(s);
+// the spatial weights stay in device memory.
+template <int CJ, int CS, bool SELF, int kShift>
+int banded_smem_bytes(int radius, int band) {
+  using G = Geometry<CJ, CS, SELF>;
+  const int cols = G::kTileW + 2 * radius;
+  const int pitch = tile_pitch(tile_seg(cols), G::kThreadsX);
+  return 4 * (align4(G::kEntries << kShift) + G::kArrays * (band + kThreadsY - 1) * pitch);
+}
+
+// Disk rows per band: the whole disk (2r + 1) where smem_bytes fits
+// kSmemLimit (the one-band kernel runs), else, for the banded kernel, the
+// most rows whose banded_smem_bytes fits it, evened out over the bands; 0
+// where not one row fits.
+// ops/bilateral_joint_kernel.py::band_rows mirrors it.
+template <int CJ, int CS, bool SELF, int kShift>
+int band_rows(int radius) {
+  using G = Geometry<CJ, CS, SELF>;
+  const int disk = 2 * radius + 1;
+  if (smem_bytes<CJ, CS, SELF, kShift>(radius) <= kSmemLimit) return disk;
+  const int pitch = tile_pitch(tile_seg(G::kTileW + 2 * radius), G::kThreadsX);
+  const int fixed = 4 * align4(G::kEntries << kShift);
+  int most = (kSmemLimit - fixed) / (4 * G::kArrays * pitch) - (kThreadsY - 1);
+  while (most > 0 && banded_smem_bytes<CJ, CS, SELF, kShift>(radius, most) > kSmemLimit) --most;
+  return even_band(disk, most, 1);
+}
+
+// The kernel for a disk whose rows do not all fit one block with the tile
+// and the tables: the disk's rows in bands of `band`, each staging only
+// the tile rows it reads, the spatial weights read from device memory; a
+// pixel's taps keep their order (dy, then dx ascending), so its sums are
+// the one-band kernel's.
+template <int CJ, int CS, bool SELF, int kShift>
+__global__ void __launch_bounds__(Geometry<CJ, CS, SELF>::kThreads, 1)
+bilateral_joint_u8_banded_kernel(const float* __restrict__ joint,
+                                 const float* __restrict__ src, float* __restrict__ out,
+                                 const float* __restrict__ tables, int h, int w, int radius,
+                                 int band) {
+  using G = Geometry<CJ, CS, SELF>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r2 = radius * radius;
+  const int cols = G::kTileW + 2 * radius;
+  const int seg = tile_seg(cols);
+  const int pitch = tile_pitch(seg, G::kThreadsX);
+  const int brows = band + kThreadsY - 1;  // tile rows of the longest band
+  float* tab = reinterpret_cast<float*>(smem);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(tab + align4(G::kEntries << kShift));
+  uint32_t* stile = tile + brows * pitch;  // the split pairing's src words
+  const float* sw = tables + G::kEntries;
+  const int x0 = blockIdx.x * G::kTileW;
+  const int y0 = blockIdx.y * kThreadsY;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const float* jimg = joint + blockIdx.z * CJ * plane;
+  const float* simg = src + blockIdx.z * CS * plane;
+  const int tid = threadIdx.y * G::kThreadsX + threadIdx.x;
+  for (int i = tid; i < (G::kEntries << kShift); i += G::kThreads) tab[i] = tables[i >> kShift];
+
+  const int ox = x0 + threadIdx.x * kPix;
+  const int oy = y0 + threadIdx.y;
+  const bool active = ox < w && oy < h;  // a ragged tile's other threads stage only
+  // the pixels' joint bytes, from device memory (reflected past the frame)
+  const size_t crow = static_cast<size_t>(oy < h ? oy : reflect101(oy, h)) * w;
+  const float* base = tab + (tid & 31 & ((1 << kShift) - 1));
+  uint32_t cen[kPix];
+  float acc[kPix][CS], wsum[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const size_t at = crow + (ox + k < w ? ox + k : reflect101(ox + k, w));
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) word |= level(jimg[c * plane + at]) << (8 * c);
+    cen[k] = word;
+#pragma unroll
+    for (int c = 0; c < CS; ++c) acc[k][c] = 0.0f;
+    wsum[k] = 0.0f;
+  }
+
+  for (int b0 = -radius; b0 <= radius; b0 += band) {
+    const int b1 = min(radius + 1, b0 + band);
+    const int rows = b1 - b0 + kThreadsY - 1;
+    __syncthreads();  // the previous band read (and the range table filled)
+    for (int i = tid; i < rows * cols; i += G::kThreads) {
+      const int ty = i / cols;
+      const int tx = i - ty * cols;
+      int gy = y0 + b0 + ty;
+      int gx = x0 - radius + tx;
+      if (static_cast<unsigned>(gy) >= static_cast<unsigned>(h)) gy = reflect101(gy, h);
+      if (static_cast<unsigned>(gx) >= static_cast<unsigned>(w)) gx = reflect101(gx, w);
+      const size_t at = static_cast<size_t>(gy) * w + gx;
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) word |= level(jimg[c * plane + at]) << (8 * c);
+      if constexpr (G::kPackSrc) {
+#pragma unroll
+        for (int c = 0; c < CS; ++c) word |= level(simg[c * plane + at]) << (8 * (CJ + c));
+      }
+      const int slot = ty * pitch + col_offset(tx, seg);
+      tile[slot] = word;
+      if constexpr (G::kSplit) {
+        uint32_t sword = 0;
+#pragma unroll
+        for (int c = 0; c < CS; ++c) sword |= level(simg[c * plane + at]) << (8 * c);
+        stile[slot] = sword;
+      }
+    }
+    __syncthreads();
+    if (active) {
+      // the tile row of disk row dy is threadIdx.y + dy - b0
+      for (int dy = b0; dy < b1; ++dy)
+        disk_row<G, CS, SELF, kShift, true>(
+            tile + (threadIdx.y + dy - b0) * pitch + threadIdx.x, brows * pitch, dy, r2,
+            radius, seg, sw, base, cen, acc, wsum);
+    }
+  }
+  if (!active) return;
   float* o = out + blockIdx.z * CS * plane + static_cast<size_t>(oy) * w + ox;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
@@ -271,6 +438,52 @@ int launch_any(int cj, int cs, int self_guided, const float* joint, const float*
     return launch<3, 1, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
   if (cj == 3 && cs == 3)
     return launch<3, 3, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One pairing at any radius: the one-band kernel where its disk fits,
+// else the banded one (cudaErrorInvalidValue where not one disk row fits).
+template <int CJ, int CS, bool SELF, int kShift>
+int launch_radius(const float* joint, const float* src, float* out, const float* tables,
+                  int n, int h, int w, int radius, cudaStream_t stream) {
+  using G = Geometry<CJ, CS, SELF>;
+  if (smem_bytes<CJ, CS, SELF, kShift>(radius) <= kSmemLimit)
+    return launch<CJ, CS, SELF, kShift>(joint, src, out, tables, n, h, w, radius, stream);
+  const int band = band_rows<CJ, CS, SELF, kShift>(radius);
+  if (band < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = bilateral_joint_u8_banded_kernel<CJ, CS, SELF, kShift>;
+  const int smem = banded_smem_bytes<CJ, CS, SELF, kShift>(radius, band);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+  }
+  const dim3 grid((w + G::kTileW - 1) / G::kTileW, (h + kThreadsY - 1) / kThreadsY, n);
+  const dim3 block(G::kThreadsX, kThreadsY);
+  kernel<<<grid, block, smem, stream>>>(joint, src, out, tables, h, w, radius, band);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every pairing of the uint8 form at any radius (the product's entry).
+template <int kShift>
+int launch_any_radius(int cj, int cs, int self_guided, const float* joint, const float* src,
+                      float* out, const float* tables, int n, int h, int w, int radius,
+                      cudaStream_t stream) {
+  if (self_guided)
+    return cj == 3 && cs == 3 ? launch_radius<3, 3, true, kShift>(joint, joint, out, tables, n,
+                                                                  h, w, radius, stream)
+                              : static_cast<int>(cudaErrorInvalidValue);
+  if (cj == 1 && cs == 1)
+    return launch_radius<1, 1, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
+  if (cj == 1 && cs == 3)
+    return launch_radius<1, 3, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
+  if (cj == 3 && cs == 1)
+    return launch_radius<3, 1, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
+  if (cj == 3 && cs == 3)
+    return launch_radius<3, 3, false, kShift>(joint, src, out, tables, n, h, w, radius, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -49,10 +49,12 @@ _SIGNATURES = {
     "rf_bilateral_gray_self": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # plane, y1, x1, y2, x2, l1, l2, b, h, w, k, stream
     "rf_whdr_gather": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, tmp, b, h, w, radius, reflect101, normalize, stream
-    "rf_box_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # guide, src, out, mom, ab, n, c, h, w, radius, eps, stream
-    "rf_guided_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, out, tmp, scratch, b, h, w, radius, reflect101, normalize, mode,
+    # band, stream
+    "rf_box_filter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # guide, src, out, mom, ab, n, c, h, w, radius, eps, mode, band, stream
+    "rf_guided_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                         _P],
     # guide, stats, mom, n, h, w, radius, eps, stream
     "rf_guide_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # stats, guide, src, out, mom, ab, n, c, h, w, radius, stream

@@ -42,10 +42,11 @@ the two agree to float32 rounding (the uint8 gate), not bitwise.
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  The u8 wrappers take float32 tensors that hold integers 0-255 (the
 JAX wrappers' contract) and the kernel packs each pixel's levels into one
-32-bit tile word; the float wrapper keeps floats.  A tile and its halo (and,
-in the table form, the range table) must fit one block's shared memory:
-:func:`max_radius` gives the largest radius of each pairing (every radius
-of the repo's sweeps, up to 33, fits them all).
+32-bit tile word; the float wrapper keeps floats.  Any radius runs: up to
+:func:`one_band_radius` (every radius of the repo's sweeps, up to 33, in
+every pairing) a block stages its tile and the whole disk's halo at once;
+beyond it the disk's rows go in bands (:func:`band_rows`), each staging only
+the tile rows it reads, with the same taps in the same order.
 """
 from __future__ import annotations
 
@@ -76,35 +77,92 @@ def _align4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def smem_bytes(cj: int, cs: int, self_guided: bool, u8: bool,
-               radius: int) -> int:
-    """Shared memory of one block of the kernel.  Float form
-    (``smem_bytes`` in csrc/bilateral_joint_float.cuh): the 16 x 32 tile
-    and its halo, for each joint and src plane, or, if larger, the split
-    groups' partial sums (FLOAT_SPLIT - 1 groups, cs + 1 floats a pixel).
-    uint8 form
-    (``Geometry`` in csrc/bilateral_joint_u8.cuh): the range table, the
-    spatial weights and the word tile, 128 x 32 pixels with its halo (64 x
-    32 and two word arrays for cj = cs = 3 with joint != src), each row 8
-    runs of ceil(cols / 8) words padded to a pitch congruent to the threads
-    across a row modulo 32."""
+def _pitch(cj: int, cs: int, self_guided: bool, u8: bool,
+           radius: int) -> int:
+    """Words (uint8 form) or positions (float form) of a tile row."""
     if not u8:
-        return 4 * max((cj + cs) * (TILE_H + 2 * radius)
-                       * (TILE_W + 2 * radius),
+        return TILE_W + 2 * radius
+    threads_x = 8 if _split(cj, cs, self_guided) else 16
+    seg = (threads_x * U8_PIX + 2 * radius + 7) // 8
+    return 8 * seg + (threads_x - 8 * seg) % 32
+
+
+def _split(cj: int, cs: int, self_guided: bool) -> bool:
+    """The uint8 pairing whose src words take a second array."""
+    return not self_guided and cj + cs > 4
+
+
+def smem_bytes(cj: int, cs: int, self_guided: bool, u8: bool,
+               radius: int, band: int = None) -> int:
+    """Shared memory of one block of the kernel; ``band`` None: the
+    one-band kernel (``smem_bytes`` in csrc/bilateral_joint_float.cuh and
+    csrc/bilateral_joint_u8.cuh), else the banded kernel's for bands of
+    ``band`` disk rows (``banded_smem_bytes``).  Float form: the 16 x 32
+    tile and its halo (band + 15 rows of it when banded), for each joint
+    and src plane, or, if larger, the split groups' partial sums
+    (FLOAT_SPLIT - 1 groups, cs + 1 floats a pixel).  uint8 form
+    (``Geometry`` in csrc/bilateral_joint_u8.cuh): the range table, the
+    spatial weights (one band only; the banded kernel reads them from
+    device memory) and the word tile, 128 x 32 pixels with its halo (64 x
+    32 and two word arrays for cj = cs = 3 with joint != src), each row 8
+    runs of ceil(cols / 8) words padded to a pitch congruent to the
+    threads across a row modulo 32."""
+    pitch = _pitch(cj, cs, self_guided, u8, radius)
+    if not u8:
+        rows = TILE_H + 2 * radius if band is None else band + TILE_H - 1
+        return 4 * max((cj + cs) * rows * pitch,
                        (FLOAT_SPLIT - 1) * (cs + 1) * TILE_H * TILE_W)
-    split = not self_guided and cj + cs > 4
-    threads_x = 8 if split else 16
-    cols = threads_x * U8_PIX + 2 * radius
-    seg = (cols + 7) // 8
-    pitch = 8 * seg + (threads_x - 8 * seg) % 32
-    rows = U8_ROWS + 2 * radius
-    return 4 * (_align4((255 * cj + 1) << U8_TABLE_SHIFT)
-                + _align4(radius * radius + 1)
-                + (2 if split else 1) * rows * pitch)
+    arrays = 2 if _split(cj, cs, self_guided) else 1
+    table = _align4((255 * cj + 1) << U8_TABLE_SHIFT)
+    if band is not None:
+        return 4 * (table + arrays * (band + U8_ROWS - 1) * pitch)
+    return 4 * (table + _align4(radius * radius + 1)
+                + arrays * (U8_ROWS + 2 * radius) * pitch)
 
 
-def max_radius(cj: int, cs: int, self_guided: bool, u8: bool) -> int:
-    """The largest radius whose tile fits :data:`SMEM_LIMIT`."""
+def even_band(disk: int, most: int, multiple: int) -> int:
+    """Disk rows per band, at most ``most`` (a multiple of ``multiple``
+    where ``most`` is at least that), as even over the bands as that
+    allows; 0 where ``most`` < 1 (``even_band`` in
+    csrc/bilateral_common.cuh)."""
+    if most < 1:
+        return 0
+    if most >= multiple:
+        most -= most % multiple
+    bands = -(-disk // most)
+    band = -(-disk // bands)
+    band = -(-band // multiple) * multiple
+    return min(band, most)
+
+
+def band_rows(cj: int, cs: int, self_guided: bool, u8: bool,
+              radius: int) -> int:
+    """The disk rows each band of the launch stages: the whole disk (2r +
+    1) where the one-band kernel fits :data:`SMEM_LIMIT`, else the banded
+    kernel's bands (``band_rows`` in csrc/bilateral_joint_float.cuh and
+    csrc/bilateral_joint_u8.cuh): the most rows whose
+    ``smem_bytes(..., band)`` fits, a multiple of FLOAT_SPLIT in the float
+    form, evened out; 0 where not one row fits."""
+    disk = 2 * radius + 1
+    if smem_bytes(cj, cs, self_guided, u8, radius) <= SMEM_LIMIT:
+        return disk
+    pitch = _pitch(cj, cs, self_guided, u8, radius)
+    if u8:
+        arrays = 2 if _split(cj, cs, self_guided) else 1
+        fixed = 4 * _align4((255 * cj + 1) << U8_TABLE_SHIFT)
+        most = (SMEM_LIMIT - fixed) // (4 * arrays * pitch) - (U8_ROWS - 1)
+        while most > 0 and smem_bytes(cj, cs, self_guided, u8, radius,
+                                      most) > SMEM_LIMIT:
+            most -= 1
+        return even_band(disk, most, 1)
+    most = SMEM_LIMIT // (4 * (cj + cs) * pitch) - (TILE_H - 1)
+    return even_band(disk, most, FLOAT_SPLIT)
+
+
+def one_band_radius(cj: int, cs: int, self_guided: bool, u8: bool) -> int:
+    """The largest radius whose whole disk the one-band kernel takes
+    (its tile, halo and tables within :data:`SMEM_LIMIT`); larger radii
+    run in bands."""
     r = 0
     while smem_bytes(cj, cs, self_guided, u8, r + 1) <= SMEM_LIMIT:
         r += 1
@@ -219,13 +277,10 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
         return bilateral_joint_plain(joint, src, radius, gcc, gsc,
                                      joint_reps, u8)
     _build.require_cuda(joint, name)
-    need = smem_bytes(cj, cs, self_guided, u8, radius)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            "{}: radius {} needs {} bytes of shared memory per block, more "
-            "than the {} a block can take; the largest radius for cj={}, "
-            "cs={} is {}".format(name, radius, need, SMEM_LIMIT, cj, cs,
-                                 max_radius(cj, cs, self_guided, u8)))
+    if band_rows(cj, cs, self_guided, u8, radius) < 1:
+        raise ValueError("{}: radius {} leaves no room for one disk row of "
+                         "a tile in a block's shared memory".format(
+                             name, radius))
     if n > _GRID_LIMIT:
         raise ValueError("{}: batch {} exceeds the kernel's grid limit of "
                          "{}".format(name, n, _GRID_LIMIT))

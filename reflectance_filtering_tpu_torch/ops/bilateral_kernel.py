@@ -13,7 +13,10 @@ divide at the end).  The weight depends on the input's type:
   * float32 in 0-255 units (the JAX function's float domain): the TPU
     kernel's ``exp(reps^2 * d^2 * gcc + r^2 * gsc)``.
 
-On integer levels the two forms differ only in float32 rounding.  Kernel
+Any radius runs: where the tile, its halo and the tables pass a block's
+shared memory (uint8 past radius 113, float32 past 100), the kernel takes
+the disk's rows in bands (:func:`band_rows`), with the same taps in the same
+order.  On integer levels the two forms differ only in float32 rounding.  Kernel
 and plain version sum in the same tap order but round differently (the
 kernel fuses multiply and add), so they agree to f32 rounding (the uint8
 gate), not bitwise.
@@ -29,6 +32,59 @@ import torch
 from . import _build
 from .bilateral import (opencv_bilateral_coeffs, pad_reflect101,
                         range_weights, space_weights)
+
+
+SMEM_LIMIT = 232448      # shared memory one H100 block can take
+# the kernel's geometry by input type (csrc/bilateral_gray_self.cu): tile
+# columns (16 threads x pixels a thread) and rows (threads down a block)
+_TILE = {True: (128, 32), False: (64, 16)}
+_RANGE_TABLE_BYTES = 511 * 32 * 4   # RangeTable: a copy per bank
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _tile_pitch(u8: bool, radius: int) -> int:
+    """Elements of a tile row (``tile_pitch`` in
+    csrc/bilateral_gray_self.cuh)."""
+    cols = _TILE[u8][0] + 2 * radius
+    return (cols - 64 + 127) // 128 * 128 + 64 if u8 else cols + 1
+
+
+def smem_bytes(u8: bool, radius: int, band: int = None) -> int:
+    """Shared memory of one block: ``band`` None, the one-band kernel's
+    (``smem_bytes``: the tile and its halo, and for uint8 levels the
+    spatial weights and the range table); else the banded kernel's for
+    bands of ``band`` disk rows (``banded_smem_bytes``: band + rows - 1
+    tile rows, and for uint8 levels the range table; the spatial weights
+    stay in device memory)."""
+    rows = _TILE[u8][1]
+    tile_rows = rows + 2 * radius if band is None else band + rows - 1
+    tile = tile_rows * _tile_pitch(u8, radius) * (1 if u8 else 4)
+    if not u8:
+        return tile
+    if band is not None:
+        return _align16(tile) + _RANGE_TABLE_BYTES
+    return (_align16(tile) + _align16((radius * radius + 1) * 4)
+            + _RANGE_TABLE_BYTES)
+
+
+def band_rows(u8: bool, radius: int) -> int:
+    """The disk rows each band of the launch stages (``band_rows`` in
+    csrc/bilateral_gray_self.cuh): the whole disk (2r + 1) where the
+    one-band kernel fits :data:`SMEM_LIMIT`, else the most rows whose
+    banded kernel fits it, evened out over the bands; 0 where not one row
+    fits."""
+    from .bilateral_joint_kernel import even_band
+    disk = 2 * radius + 1
+    if smem_bytes(u8, radius) <= SMEM_LIMIT:
+        return disk
+    row = _tile_pitch(u8, radius) * (1 if u8 else 4)
+    most = SMEM_LIMIT // row - (_TILE[u8][1] - 1)
+    while most > 0 and smem_bytes(u8, radius, most) > SMEM_LIMIT:
+        most -= 1
+    return even_band(disk, most, 1)
 
 
 def _taps(radius: int):
@@ -111,6 +167,10 @@ def bilateral_gray_self(x: torch.Tensor, d: int = -1,
     radius, gcc, gsc = opencv_bilateral_coeffs(d, sigma_color,
                                                sigma_space)
     u8 = x.dtype == torch.uint8
+    if band_rows(u8, radius) < 1:
+        raise ValueError("bilateral_gray_self: radius {} leaves no room for "
+                         "one disk row of a tile in a block's shared "
+                         "memory".format(radius))
     tables = _tables(x.device, radius, reps, gcc, gsc) if u8 else None
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel():

@@ -12,7 +12,10 @@ The plain version is the JAX package's generic planar path
 (ops/boxfilter.py): one box pass over the 9 + 4C moment planes, the 3x3
 cofactor solve, one box pass over (a0, a1, a2, b).  The kernel forms the
 same moments and solve but sums its windows in float64, so the two agree
-to the plain box's float32 rounding, not bitwise.
+to the plain box's float32 rounding, not bitwise.  On the card the kernel
+runs its fused pair (the moment planes kept in shared memory) wherever
+that fits the frame's width (:func:`fused_fits`), else its four passes;
+:func:`fused_path` mirrors the choice.
 """
 from __future__ import annotations
 
@@ -25,6 +28,12 @@ from .box_kernel import box_filter_planar_plain
 
 _GRID_LIMIT = 65535
 _INT_LIMIT = 2 ** 31 - 1
+GUIDE_PLANES = 9          # I0 I1 I2 and the 6 unique I_i I_j
+# the fused kernels (csrc/guided.cu): threads a block, the widest frame
+# they serve by shape, a block's shared-memory limit on an H100
+FUSED_WIDEST = 512        # a thread per column, at most
+SMEM_LIMIT = 227 * 1024
+PATHS = {"auto": 0, "four-pass": 1, "fused": 2}
 _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 Box = Callable[[torch.Tensor, int], torch.Tensor]
@@ -143,6 +152,45 @@ def check_grid(wrapper: str, n: int, h: int, w: int, planes: int) -> None:
                                            _GRID_LIMIT))
 
 
+def fused_smem(planes: int, w: int) -> int:
+    """Shared memory of a fused block over ``planes`` planes of rows of w
+    (``fused_smem`` in csrc/guided.cu): the column sums and the row
+    prefixes in float64, two buffers each, a column's planes padded to an
+    odd count."""
+    return 2 * (planes | 1) * (2 * w + 1) * 8
+
+
+def fused_fits(c: int, w: int) -> bool:
+    """Whether the fused kernels take ``c`` src channels on frames w wide
+    (``fused_fits`` in csrc/guided.cu): a thread per column
+    (:data:`FUSED_WIDEST`) and the stats-and-solve block (9 + 4c planes)
+    within :data:`SMEM_LIMIT`."""
+    return (w <= FUSED_WIDEST
+            and fused_smem(GUIDE_PLANES + 4 * c, w) <= SMEM_LIMIT)
+
+
+def fused_path(c: int, w: int, path: str = "auto") -> bool:
+    """Whether a launch of ``c`` src channels on frames w wide takes the
+    fused kernels (``guided_any`` in csrc/guided.cu): by shape, wherever
+    they fit (they beat the four passes at every shape measured on an
+    H100); or as ``path`` forces it."""
+    return fused_fits(c, w) if path == "auto" else path == "fused"
+
+
+def fused_band(n: int, c: int, h: int, w: int, sms: int = 132) -> int:
+    """Output rows per fused block (``fused_band`` in csrc/guided.cu, the
+    device's SM count read there): 32 where the grid of n x ceil(h / band)
+    blocks fills at least 90% of the slots the solve kernel's shared memory
+    leaves resident (per SM, at most 8), else 16 where that does, else
+    8."""
+    per_sm = (228 * 1024) // (fused_smem(GUIDE_PLANES + 4 * c, w) + 1024)
+    slots = sms * min(max(per_sm, 1), 8)
+    for band in (32, 16):
+        if 10 * n * -(-h // band) >= 9 * slots:
+            return band
+    return 8
+
+
 def by_channel_groups(src: torch.Tensor, launch) -> torch.Tensor:
     """out [N, C, H, W] from ``launch(s, o)`` on src's channels in groups
     of at most three (the kernels' templates take C = 1, 2 or 3)."""
@@ -158,34 +206,53 @@ def by_channel_groups(src: torch.Tensor, launch) -> torch.Tensor:
 
 
 def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
-                        eps: float) -> torch.Tensor:
+                        eps: float, path: str = "auto",
+                        band: int = 0) -> torch.Tensor:
     """Guided filter with a color guide: guide [N, 3, H, W], src
     [N, C, H, W] float32 -> [N, C, H, W].
 
     A CPU tensor runs :func:`guided_filter_fused_plain`; a CUDA tensor
     launches the kernel (src channels in groups of at most three, each
-    group one kernel call that recomputes the guide's statistics)."""
+    group one kernel call that recomputes the guide's statistics).  The
+    kernel takes its fused pair or its four passes by shape
+    (:func:`fused_path`); ``path`` "fused" or "four-pass" forces one (the
+    tests and the measurements), and ``band`` sets the fused blocks'
+    output rows (0: :func:`fused_band`'s rule)."""
     check_guided(guide, radius, (("src", src),))
+    if path not in PATHS:
+        raise ValueError("path must be one of {}, got {!r}".format(
+            sorted(PATHS), path))
     if guide.device.type == "cpu":
         return guided_filter_fused_plain(guide, src, radius, eps)
     _build.require_cuda(guide, "guided_filter_fused")
     n, c, h, w = src.shape
     group = min(c, 3)
     check_grid("guided_filter_fused", n, h, w, 4 * group)
+    # the widest group (most planes) is the last to fit the fused kernels
+    fused = fused_path(group, w, path)
+    if fused and not fused_fits(group, w):
+        raise ValueError("guided_filter_fused: the fused kernels take frames "
+                         "up to their shared memory's width, not {}".format(w))
     if not src.numel():
         return torch.empty_like(src)
-    mom = torch.empty((n, 9 + 4 * group, h, w), dtype=torch.float32,
-                      device=src.device)
+    mom = None if fused else torch.empty((n, 9 + 4 * group, h, w),
+                                         dtype=torch.float32,
+                                         device=src.device)
     ab = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
                      device=src.device)
 
     def launch(s, o):
         _build.launch("rf_guided_filter", src.device, guide.data_ptr(),
-                      s.data_ptr(), o.data_ptr(), mom.data_ptr(),
-                      ab.data_ptr(), n, s.shape[1], h, w, radius, float(eps))
+                      s.data_ptr(), o.data_ptr(),
+                      None if mom is None else mom.data_ptr(), ab.data_ptr(),
+                      n, s.shape[1], h, w, radius, float(eps), PATHS[path],
+                      band)
         guided_filter_fused.launches += 1
+        if fused_path(s.shape[1], w, path):
+            guided_filter_fused.fused_launches += 1
 
     return by_channel_groups(src, launch)
 
 
 guided_filter_fused.launches = 0
+guided_filter_fused.fused_launches = 0

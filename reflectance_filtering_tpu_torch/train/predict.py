@@ -29,8 +29,9 @@ def percent(num) -> str:
 
 
 def make_predict_fn(net_cfg: NetworkConfig) -> Callable:
-    """(params, images NHWC tensor) -> {RS_est, reflectance, shading}, with
-    no autograd graph."""
+    """(params, images NHWC tensor) -> {RS_est, reflectance, shading}, plus
+    the cascade's ``reflectance_level0`` when the network makes it (JAX
+    ``train/predict.py:67-68``), with no autograd graph."""
 
     def predict(params, images):
         with torch.no_grad():
@@ -41,8 +42,11 @@ def make_predict_fn(net_cfg: NetworkConfig) -> Callable:
             else:
                 refl, shad = recover_reflectance_shading(
                     blobs["RS_est"], images, net_cfg.rs_est_mode)
-        return {"RS_est": blobs["RS_est"], "reflectance": refl,
-                "shading": shad}
+        out = {"RS_est": blobs["RS_est"], "reflectance": refl,
+               "shading": shad}
+        if "reflectance_level0" in blobs:
+            out["reflectance_level0"] = blobs["reflectance_level0"]
+        return out
 
     return predict
 

@@ -239,3 +239,22 @@ def test_kernel_wrapper_checks_and_cpu_dispatch(rng):
         bilateral_gray_self(levels.to(torch.int32))
     with pytest.raises(ValueError):
         bilateral_gray_self(x.transpose(1, 2))
+
+
+@pytest.mark.parametrize("u8,one_band,largest", [(True, 113, 2528),
+                                                 (False, 100, 1783)])
+def test_gray_self_band_rows(u8, one_band, largest):
+    """K2's band sizing (band_rows, mirroring csrc/bilateral_gray_self.cuh):
+    the whole disk in one band up to the one-band kernel's radius (33, the
+    product's, among them), beyond it bands whose banded kernel fits a
+    block's shared memory, and none past ``largest``."""
+    from reflectance_filtering_tpu_torch.ops import bilateral_kernel as k2
+    for radius in (0, 3, 33, one_band):
+        assert k2.band_rows(u8, radius) == 2 * radius + 1
+        assert k2.smem_bytes(u8, radius) <= k2.SMEM_LIMIT
+    assert k2.smem_bytes(u8, one_band + 1) > k2.SMEM_LIMIT
+    for radius in (one_band + 1, 120, 500, largest):
+        band = k2.band_rows(u8, radius)
+        assert 1 <= band <= 2 * radius + 1
+        assert k2.smem_bytes(u8, radius, band) <= k2.SMEM_LIMIT
+    assert k2.band_rows(u8, largest + 1) == 0

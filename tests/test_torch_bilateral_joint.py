@@ -177,9 +177,9 @@ def test_bilateral_cli_matches_jax_cli(case, tmp_path):
 def test_wrappers_cpu_dispatch_and_checks(rng):
     """A CPU tensor runs the plain version (the exp form for the float
     wrapper, the table form for the u8 ones) and counts no launch; shapes
-    and plane counts without a kernel raise; every (cj, cs) fits radius 33
-    (the repo's sweeps go up to sigma_s 22), and the float 3 + 3 planes
-    stop at 37."""
+    and plane counts without a kernel raise; every (cj, cs) takes radius
+    33 (the repo's sweeps go up to sigma_s 22) in one band, and the one-band
+    kernel's largest radius is where its shared memory stops fitting."""
     x = torch.from_numpy(_u8(rng, 1, 3, 9, 10))
     wrappers = (k6.joint_bilateral_planar_batched,
                 k6.bilateral_color_self_batched,
@@ -208,12 +208,79 @@ def test_wrappers_cpu_dispatch_and_checks(rng):
                                    (False, False, [(1, 1), (1, 3), (3, 1),
                                                    (3, 3)])):
         for cj, cs in pairs:
-            r = k6.max_radius(cj, cs, self_guided, u8)
+            r = k6.one_band_radius(cj, cs, self_guided, u8)
             assert r >= 33, (cj, cs, self_guided, u8, r)
             assert (k6.smem_bytes(cj, cs, self_guided, u8, r)
                     <= k6.SMEM_LIMIT
                     < k6.smem_bytes(cj, cs, self_guided, u8, r + 1))
-    assert k6.max_radius(3, 3, False, False) == 37
+            assert k6.band_rows(cj, cs, self_guided, u8, 33) == 67
+
+
+K6_PAIRINGS = [(3, 3, True, True)] + [
+    (cj, cs, False, u8) for u8 in (True, False) for cj in (1, 3)
+    for cs in (1, 3)]
+
+
+@pytest.mark.parametrize("cj,cs,self_guided,u8", K6_PAIRINGS)
+def test_band_rows_fit_and_keep_one_band_where_the_disk_fits(
+        cj, cs, self_guided, u8):
+    """The launch's band sizing (band_rows, mirroring the kernels'
+    headers): one band of the whole disk wherever the one-band kernel fits
+    (radius 33 among them, so today's geometry is kept), else bands whose
+    banded kernel fits SMEM_LIMIT while one row more would not (up to the
+    evening out), in the float form a multiple of the four groups of warps
+    but the last; every radius up to 250 runs."""
+    r_one = k6.one_band_radius(cj, cs, self_guided, u8)
+    for radius in (0, 1, 33, r_one, r_one + 1, 120, 250):
+        disk = 2 * radius + 1
+        band = k6.band_rows(cj, cs, self_guided, u8, radius)
+        if radius <= r_one:
+            assert band == disk
+            assert (k6.smem_bytes(cj, cs, self_guided, u8, radius)
+                    <= k6.SMEM_LIMIT)
+            continue
+        assert 1 <= band <= disk, (radius, band)
+        assert (k6.smem_bytes(cj, cs, self_guided, u8, radius, band)
+                <= k6.SMEM_LIMIT)
+        bands = -(-disk // band)
+        most = band
+        while (k6.smem_bytes(cj, cs, self_guided, u8, radius, most + 1)
+               <= k6.SMEM_LIMIT):
+            most += 1
+        assert bands == -(-disk // (most - most % k6.FLOAT_SPLIT
+                                    if not u8 and most >= k6.FLOAT_SPLIT
+                                    else most))
+        if not u8 and band >= k6.FLOAT_SPLIT:
+            assert band % k6.FLOAT_SPLIT == 0
+    # the one-band kernels keep their footprint: the float 3 + 3 planes
+    # stop at 37, the color-self uint8 form at 61
+    assert k6.one_band_radius(3, 3, False, False) == 37
+    assert k6.one_band_radius(3, 3, True, True) == 61
+
+
+@pytest.mark.parametrize("cj,cs,self_guided,u8,largest", [
+    (3, 3, True, True, 648), (1, 1, False, True, 776),
+    (1, 3, False, True, 776), (3, 1, False, True, 648),
+    (3, 3, False, True, 324), (1, 1, False, False, 892),
+    (1, 3, False, False, 438), (3, 1, False, False, 438),
+    (3, 3, False, False, 286)])
+def test_banded_radius_reach(cj, cs, self_guided, u8, largest):
+    """The banded kernels' reach: one disk row a band fits up to
+    ``largest`` (sigma_s of 190 and more), where the one-band kernels
+    stopped at 37-73; past it band_rows is 0 and the wrapper refuses the
+    radius on the card."""
+    assert k6.band_rows(cj, cs, self_guided, u8, largest) >= 1
+    assert k6.band_rows(cj, cs, self_guided, u8, largest + 1) == 0
+    assert largest > 4 * k6.one_band_radius(cj, cs, self_guided, u8)
+
+
+@pytest.mark.parametrize("disk,most,multiple,want", [
+    (241, 341, 1, 241), (241, 81, 1, 81), (241, 100, 1, 81),
+    (241, 23, 4, 20), (147, 36, 4, 32), (5, 3, 4, 3), (7, 0, 1, 0)])
+def test_even_band(disk, most, multiple, want):
+    """even_band (mirrored in csrc/bilateral_common.cuh): as few bands as
+    ``most`` rows allow, evened out, rounded to ``multiple``."""
+    assert k6.even_band(disk, most, multiple) == want
 
 
 @pytest.mark.parametrize("cj", [1, 3])

@@ -125,12 +125,12 @@ def test_factored_weight_matches_plain_and_pallas(cj, cs, shape,
 
 @pytest.mark.parametrize("cj,cs", [(1, 1), (1, 3), (3, 1), (3, 3)])
 def test_factored_weight_at_max_radius(cj, cs, rng):
-    """At each pairing's largest radius, on a frame smaller than the radius
-    (reflection repeats): the emulation within 1e-3 and 1 level of the
+    """At each pairing's largest one-band radius, on a frame smaller than
+    the radius (reflection repeats): the emulation within 1e-3 and 1 level of the
     plain version in float64, and nearer to it than the float32 plain
     version is at radius 73 (whose running sums over 16,757 taps drift
     by ~1e-3)."""
-    r = k6.max_radius(cj, cs, False, False)
+    r = k6.one_band_radius(cj, cs, False, False)
     joint = (rng.rand(1, cj, 12, 20) * 255).astype(np.float32)
     src = (rng.rand(1, cs, 12, 20) * 255).astype(np.float32)
     _, gcc, gsc = opencv_bilateral_coeffs(2 * r + 1, SIGMA_C, 22.0)
@@ -152,7 +152,7 @@ def test_float_max_radius_per_pairing(cj, cs, at_least):
     """Each float pairing admits the first port's largest radius or more
     (the footprint is the same 16 x 32 tile); the shared memory mirror
     takes the split groups' partial sums where they outgrow the tile."""
-    r = k6.max_radius(cj, cs, False, False)
+    r = k6.one_band_radius(cj, cs, False, False)
     assert r >= at_least, (cj, cs, r)
     assert (k6.smem_bytes(cj, cs, False, False, r) <= k6.SMEM_LIMIT
             < k6.smem_bytes(cj, cs, False, False, r + 1))

@@ -235,6 +235,45 @@ def test_check_grid_at_the_geometrys_limits(n, h, w, planes, ok):
             check_grid("t", n, h, w, planes)
 
 
+@pytest.mark.parametrize("c,widest", [(1, 512), (2, 426), (3, 345)])
+def test_fused_path_at_its_limits(c, widest):
+    """The wrapper's mirror of csrc/guided.cu: the fused pair takes frames
+    up to ``widest`` columns (a thread per column up to 512, and the
+    stats-and-solve block's float64 column sums and prefixes, 2 x (9 + 4c)
+    x (2w + 1) doubles, within a block's shared memory), the four passes
+    the rest; a forced path is taken as asked."""
+    from reflectance_filtering_tpu_torch.ops import guided_kernel as k5
+    assert k5.fused_fits(c, widest) and not k5.fused_fits(c, widest + 1)
+    assert k5.fused_path(c, widest) and not k5.fused_path(c, widest + 1)
+    assert k5.fused_smem(9 + 4 * c, widest) <= k5.SMEM_LIMIT
+    if widest < k5.FUSED_WIDEST:
+        assert k5.fused_smem(9 + 4 * c, widest + 1) > k5.SMEM_LIMIT
+    assert k5.fused_path(c, 40, "four-pass") is False
+    assert k5.fused_path(c, 4000, "fused") is True
+
+
+@pytest.mark.parametrize("n,c,h,w,band", [
+    (32, 1, 256, 256, 32), (32, 3, 256, 256, 32), (30, 1, 256, 256, 32),
+    (29, 1, 256, 256, 16), (16, 1, 256, 256, 16), (8, 1, 256, 256, 8),
+    (1, 1, 256, 256, 8), (1, 1, 3800, 512, 32), (1, 1, 3776, 512, 16),
+    (1, 3, 96, 128, 8)])
+def test_fused_band_rule(n, c, h, w, band):
+    """The fused blocks' rows (``fused_band``, 132 SMs): 32 where the grid
+    fills 90% of the slots the solve block's shared memory leaves (2 an SM
+    at 32 x 256x256 and C = 1, 1 at C = 3 or 512 columns), else 16 where
+    that does, else 8; the served batch takes 32, the band measured
+    fastest there."""
+    from reflectance_filtering_tpu_torch.ops.guided_kernel import fused_band
+    assert fused_band(n, c, h, w) == band
+
+
+def test_wrapper_refuses_a_bad_path(rng):
+    g = torch.from_numpy(_u8(rng, 1, 3, 9, 10))
+    s = torch.from_numpy(_u8(rng, 1, 1, 9, 10))
+    with pytest.raises(ValueError, match="path"):
+        guided_filter_fused(g, s, 2, 3.0, path="three-pass")
+
+
 def _jax_gf(params, img):
     """The JAX package's gf pipeline, XLA form (utils/serving.py:98-116),
     on seeded weights."""

@@ -98,9 +98,37 @@ def test_bilateral_kernel_refuses_other_dtypes(dev, dtype):
 
 
 def test_bilateral_kernel_refuses_too_large_a_radius(dev):
+    """Radius 120 runs (in bands); only a radius past the banded kernel's
+    reach (float32: 1,783, not one disk row of a tile fits a block) is
+    refused, before any launch."""
+    from reflectance_filtering_tpu_torch.ops import bilateral_kernel as k2
     x = torch.zeros(1, 8, 8, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        bilateral_gray_self(x, -1, 20.0, 80.0)      # radius 120
+    assert torch.equal(bilateral_gray_self(x, -1, 20.0, 80.0), x)
+    before = bilateral_gray_self.launches
+    assert k2.band_rows(False, 1784) == 0
+    with pytest.raises(ValueError, match="radius 1784"):
+        bilateral_gray_self(x, 2 * 1784 + 1, 20.0, 80.0)
+    assert bilateral_gray_self.launches == before
+
+
+@pytest.mark.parametrize("u8", [True, False])
+def test_bilateral_kernel_in_bands_at_radius_120(dev, u8):
+    """K2 at sigma_s 80 (radius 120, past the one-band kernel's 113 for
+    uint8 and 100 for float32: the disk's rows in bands) on 1 x 192x256
+    against its plain version, whose float32 sums run in the kernel's tap
+    order: within 1e-3, 1 uint8 level, equal on >= 99.9%."""
+    from reflectance_filtering_tpu_torch.ops import bilateral_kernel as k2
+    assert k2.smem_bytes(u8, 120) > k2.SMEM_LIMIT
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randint(0, 256, size=(1, 192, 256)).astype(
+        np.uint8 if u8 else np.float32)).to(dev)
+    before = bilateral_gray_self.launches
+    got = bilateral_gray_self(x, -1, 20.0, 80.0)
+    assert bilateral_gray_self.launches == before + 1
+    exp = bilateral_gray_self_plain(x, -1, 20.0, 80.0)
+    d = (torch.round(got) - torch.round(exp)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 1e-3
 
 
 # every instantiation of K6: (cj, cs, self-guided, u8 storage)
@@ -153,17 +181,18 @@ K6_U8_EDGES = [(3, 3, True, 1), (3, 1, False, 1), (3, 3, False, 1),
 
 @pytest.mark.parametrize("cj,cs,self_guided,reps", K6_U8_EDGES)
 def test_bilateral_joint_u8_at_max_radius(dev, cj, cs, self_guided, reps):
-    """K6's uint8 form at max_radius (its shared memory at the block's
-    limit; the frame smaller than the radius, so reflection repeats) and
-    at radius 33 on a frame with ragged tiles in both directions, against
-    the plain table form: within 1 uint8 level, equal on >= 99.9%; one
-    radius more raises before any launch."""
+    """K6's uint8 form at its one-band kernel's largest radius (shared
+    memory at the block's limit; the frame smaller than the radius, so
+    reflection repeats), one radius more (the banded kernel), and radius
+    33 on a frame with ragged tiles in both directions, against the plain
+    table form: within 1 uint8 level, equal on >= 99.9%, 1e-3 in float."""
     rng = np.random.RandomState(9)
-    r_max = k6.max_radius(cj, cs, self_guided, True)
-    assert r_max >= 33
+    r_one = k6.one_band_radius(cj, cs, self_guided, True)
+    assert r_one >= 33
     fn = (k6.bilateral_color_self_batched if self_guided
           else k6.bilateral_packed_joint_batched)
-    for (n, h, w), radius in (((1, 40, 52), r_max), ((2, 70, 150), 33)):
+    for (n, h, w), radius in (((1, 40, 52), r_one), ((1, 40, 52), r_one + 1),
+                              ((2, 70, 150), 33)):
         joint = torch.from_numpy(rng.randint(0, 256, (n, cj, h, w)).astype(
             np.float32)).to(dev)
         src = joint if self_guided else torch.from_numpy(rng.randint(
@@ -179,33 +208,31 @@ def test_bilateral_joint_u8_at_max_radius(dev, cj, cs, self_guided, reps):
         d = (torch.round(got) - torch.round(exp)).abs()
         assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
         assert (got - exp).abs().max().item() <= 1e-3
-    with pytest.raises(ValueError, match="largest radius .* is {}".format(
-            r_max)):
-        fn(*args, 2 * r_max + 3, 20.0, 22.0, **kwargs)
 
 
 @pytest.mark.parametrize("cj,cs", [(1, 1), (1, 3), (3, 1), (3, 3)])
 def test_bilateral_joint_float_at_max_radius(dev, cj, cs):
-    """K6's float form at max_radius (its shared memory at the block's
-    limit; the frame smaller than the radius, so reflection repeats) and
-    at radius 33 on a frame with ragged tiles in both directions, on
-    non-integer values, against the plain exp form: within 1 uint8 level,
-    equal on >= 99.9%, 1e-3 in float; at max_radius against the plain
-    version in float64 (the float32 one's running sums over the disk,
-    16,757 taps at radius 73, drift by ~1e-3 themselves); one radius more
-    raises before any launch."""
+    """K6's float form at its one-band kernel's largest radius (shared
+    memory at the block's limit; the frame smaller than the radius, so
+    reflection repeats), one radius more (the banded kernel), and radius
+    33 on a frame with ragged tiles in both directions, on non-integer
+    values, against the plain exp form: within 1 uint8 level, equal on >=
+    99.9%, 1e-3 in float; past radius 33 against the plain version in
+    float64 (the float32 one's running sums over the disk, 16,757 taps at
+    radius 73, drift by ~1e-3 themselves)."""
     rng = np.random.RandomState(10)
-    r_max = k6.max_radius(cj, cs, False, False)
-    assert r_max >= {(1, 1): 73, (1, 3): 48, (3, 1): 48, (3, 3): 37}[cj, cs]
+    r_one = k6.one_band_radius(cj, cs, False, False)
+    assert r_one >= {(1, 1): 73, (1, 3): 48, (3, 1): 48, (3, 3): 37}[cj, cs]
     fn = k6.joint_bilateral_planar_batched
-    for (n, h, w), radius in (((1, 40, 52), r_max), ((2, 70, 150), 33)):
+    for (n, h, w), radius in (((1, 40, 52), r_one), ((1, 40, 52), r_one + 1),
+                              ((2, 70, 150), 33)):
         joint, src = (torch.from_numpy((rng.rand(n, c, h, w) * 255).astype(
             np.float32)).to(dev) for c in (cj, cs))
         before = fn.launches
         got = fn(joint, src, 2 * radius + 1, 20.0, 22.0)
         assert fn.launches == before + 1
         _, gcc, gsc = k6.opencv_bilateral_coeffs(2 * radius + 1, 20.0, 22.0)
-        if radius == r_max:
+        if radius > 33:
             exp = k6.bilateral_joint_plain(joint.double(), src.double(),
                                            radius, gcc, gsc).float()
         else:
@@ -213,18 +240,58 @@ def test_bilateral_joint_float_at_max_radius(dev, cj, cs):
         d = (torch.round(got) - torch.round(exp)).abs()
         assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
         assert (got - exp).abs().max().item() <= 1e-3
-    with pytest.raises(ValueError, match="largest radius .* is {}".format(
-            r_max)):
-        fn(joint, src, 2 * r_max + 3, 20.0, 22.0)
+
+
+@pytest.mark.parametrize("cj,cs,self_guided,u8", K6_INSTANCES)
+def test_bilateral_joint_in_bands_at_radius_120(dev, cj, cs, self_guided,
+                                                u8):
+    """Every instantiation of K6 at sigma_s 80 (radius 120, past every
+    one-band kernel: the disk's rows in bands) on 1 x 192x256 against its
+    plain version: within 1 uint8 level, equal on >= 99.9%, and 1e-3 in
+    float (the uint8 form against the float32 plain version, which sums in
+    its order; the float form against the float64 one)."""
+    assert k6.band_rows(cj, cs, self_guided, u8, 120) < 241
+    rng = np.random.RandomState(13)
+
+    def planes(c):
+        v = rng.rand(1, c, 192, 256) * 255
+        return torch.from_numpy((np.floor(v * 256 / 255) if u8 else v)
+                                .astype(np.float32)).to(dev)
+
+    joint = planes(cj)
+    src = joint if self_guided else planes(cs)
+    if self_guided:
+        fn, args = k6.bilateral_color_self_batched, (joint,)
+    elif u8:
+        fn, args = k6.bilateral_packed_joint_batched, (joint, src)
+    else:
+        fn, args = k6.joint_bilateral_planar_batched, (joint, src)
+    before = fn.launches
+    got = fn(*args, -1, 20.0, 80.0)
+    assert fn.launches == before + 1
+    radius, gcc, gsc, _ = opencv_bilateral_params(-1, 20.0, 80.0)
+    assert radius == 120
+    if u8:
+        exp = k6.bilateral_joint_plain(joint, src, radius, gcc, gsc, 1, True)
+    else:
+        exp = k6.bilateral_joint_plain(joint.double(), src.double(), radius,
+                                       gcc, gsc).float()
+    d = (torch.round(got) - torch.round(exp)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 1e-3
 
 
 def test_bilateral_joint_kernel_refuses_too_large_a_radius(dev):
-    """Float 3 + 3 planes at sigma_s 30 (radius 45) need 310 KB of shared
-    memory: a ValueError naming radius 37, before any launch."""
+    """Float 3 + 3 planes at sigma_s 30 (radius 45, past the one-band
+    kernel's 37) run in bands; only a radius past the banded kernel's
+    reach (287: not one disk row of the 16 x 32 tile fits a block) is
+    refused, with a ValueError before any launch."""
     x = torch.zeros(1, 3, 8, 8, device=dev)
+    assert torch.equal(k6.joint_bilateral_planar_batched(x, x, -1, 20.0,
+                                                         30.0), x)
     before = k6.joint_bilateral_planar_batched.launches
-    with pytest.raises(ValueError, match="largest radius .* is 37"):
-        k6.joint_bilateral_planar_batched(x, x, -1, 20.0, 30.0)
+    with pytest.raises(ValueError, match="radius 287"):
+        k6.joint_bilateral_planar_batched(x, x, 2 * 287 + 1, 20.0, 30.0)
     assert k6.joint_bilateral_planar_batched.launches == before
 
 
@@ -314,6 +381,105 @@ def test_guided_kernel_matches_plain(dev, n, c, h, w, radius):
     d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
     assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
     assert (got - exp).abs().max().item() <= 0.05
+
+
+# K5's shapes for both paths: the served gf batch, the golden fixtures'
+# frames (96x128 at r = 3, 128x160 at r = 45 and 52, C = 1 and 3), and
+# frames smaller than the window (reflection repeats; r = 300 on 12x40)
+K5_PATH_CASES = [(32, 1, 256, 256, 45), (1, 1, 96, 128, 3),
+                 (1, 3, 96, 128, 3), (1, 1, 128, 160, 45),
+                 (1, 3, 128, 160, 52), (1, 1, 12, 40, 300),
+                 (1, 3, 12, 40, 300), (2, 2, 37, 300, 20)]
+
+
+@pytest.mark.parametrize("path", ["fused", "four-pass"])
+@pytest.mark.parametrize("n,c,h,w,radius", K5_PATH_CASES)
+def test_guided_kernel_paths_match_plain(dev, n, c, h, w, radius, path):
+    """K5's fused pair and its four passes, each forced, against the plain
+    version on uint8-valued images: within 1 uint8 level, equal on >=
+    99.9%, 0.05 in float; past the frame (r = 300) against the plain
+    version in float64, whose float32 box partials would swamp a window
+    that wide.  The fused launches are counted apart."""
+    rng = np.random.RandomState(14)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, c, h, w) * 256).astype(
+        np.float32)).to(dev)
+    before = (guided_filter_fused.launches,
+              guided_filter_fused.fused_launches)
+    got = guided_filter_fused(g, s, radius, 3.0, path=path)
+    assert (guided_filter_fused.launches,
+            guided_filter_fused.fused_launches) == (
+                before[0] + 1, before[1] + (path == "fused"))
+    if radius >= min(h, w):
+        exp = guided_filter_fused_plain(g.double(), s.double(), radius,
+                                        3.0).float()
+    else:
+        exp = guided_filter_fused_plain(g, s, radius, 3.0)
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 0.05
+
+
+@pytest.mark.parametrize("path", ["fused", "four-pass"])
+def test_guided_golden_fixtures_by_path(dev, path):
+    """Each path on the 12 color-guide golden fixtures
+    (tests/fixtures/guided_golden.npz: a color guide over a gray or a
+    color src at r = 3, 45, 52 and eps = 3, 7), after the product's
+    rounding: within 1 uint8 level of every fixture.  (The 6 gray-guide
+    fixtures take the scalar formulas over K4, not K5; chip_smoke.py
+    phase 3b holds all 18 through guided_filter_u8.)"""
+    import os
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "guided_golden.npz")
+    golden = dict(np.load(fixture))
+    for radius in (3, 45, 52):
+        key = "small" if radius == 3 else "big"
+        for eps in (3.0, 7.0):
+            for kind in ("color", "colorsrc"):
+                g_u8 = golden["img_{}_guide_color".format(key)]
+                s_u8 = g_u8 if kind == "colorsrc" else golden[
+                    "img_{}_src".format(key)]
+                gp = torch.from_numpy(np.ascontiguousarray(
+                    np.moveaxis(g_u8, -1, 0)[None])).to(dev).float()
+                sa = np.moveaxis(s_u8, -1, 0) if s_u8.ndim == 3 \
+                    else s_u8[None]
+                sp = torch.from_numpy(np.ascontiguousarray(sa[None])).to(
+                    dev).float()
+                q = guided_filter_fused(gp, sp, radius, eps, path=path)
+                got = torch.clamp(torch.round(q), 0, 255)[0].cpu().numpy()
+                exp = golden["out_r{}_e{}_{}".format(radius, int(eps),
+                                                     kind)]
+                exp = np.moveaxis(exp, -1, 0) if exp.ndim == 3 \
+                    else exp[None]
+                assert np.abs(got.astype(int) - exp.astype(int)).max() \
+                    <= 1, (radius, eps, kind)
+
+
+@pytest.mark.parametrize("border", ["reflect", "reflect101"])
+@pytest.mark.parametrize("shape,radius,path", [
+    ((32, 256, 256), 45, "fused"), ((32, 256, 256), 45, "two-pass"),
+    ((13, 64, 64), 11, "fused"), ((13, 64, 64), 11, "two-pass"),
+    ((2, 20, 27), 45, "fused"), ((2, 20, 27), 45, "two-pass"),
+    ((1, 5, 512), 3, "fused"), ((1, 5, 700), 3, "two-pass")])
+def test_box_kernel_forms_match_plain(dev, shape, radius, path, border):
+    """K4's fused form and its two passes, each forced (the fused form up
+    to 512 columns), on the timed stack, the guided CLI's --subsample=4
+    planes (13 of 64x64 at r = 11), a plane narrower than the window and
+    rows at and past the fused form's widest, against the block-local
+    float32 sliding sum: within 8 float32 ulps of its largest partial,
+    scaled like the output."""
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).to(dev)
+    before = (box_filter_planar.launches, box_filter_planar.fused_launches)
+    got = box_filter_planar(x, radius, border, path=path)
+    assert (box_filter_planar.launches,
+            box_filter_planar.fused_launches) == (
+                before[0] + 1, before[1] + (path == "fused"))
+    exp = box_filter_planar_plain(x, radius, border)
+    w = 2 * radius + 1
+    partial = min(max(shape[1:]) + 2 * radius, 512) * w * 255.0
+    assert (got - exp).abs().max().item() <= 8 * 2.0 ** -24 * partial / (w * w)
 
 
 def _within_gate(got, exp):
