@@ -47,7 +47,12 @@ Phases (any failure exits nonzero before the result line):
               forward counted through the kernel its shape takes (the
               tensor cores' for all but the 128-wide trunk), and
               the WHDR scatter-add K8 against index_put_(accumulate=True)
-              with forced collisions; each backward launched twice and held
+              with forced collisions, its sort path bitwise equal to its
+              quadratic search, the same two at 1024x1024, K = 2048 (64-bit
+              keys, the most shared memory a 4,096-key block takes), and the
+              quadratic search alone at K = 9000 (above the sort path's
+              limit) against index_put_; each
+              backward launched twice and held
               bitwise equal; K7's backward split by phase (TPU kernel 19) at
               20 x 256x256: the full variant bitwise equal to the product
               backward, the four with phases removed within 2e-4 of each
@@ -107,6 +112,14 @@ Phases (any failure exits nonzero before the result line):
               joint_bilateral_filter_fast, the float filter's entry point
               (the width-sharded filter's, not ported yet), called
               directly and held against the CPU;
+  5d. decompose  the train CLI's --stage=predict --decompose from phase 5's
+              flagship snapshot, no dataset on disk, on a folder of seven
+              PNGs (256x256, 341x512, 97x131), an npz of 4 x 64x64, an mp4v
+              movie of 12 frames at 240x320 and a file no decoder reads, on
+              cuda (K7's forward counted) and with --device cpu: every PNG
+              within 1 uint8 level, every npz array within 1e-4, the five
+              movie files (the triptych 3x as wide), both 0command.txt,
+              the unreadable file reported; the image decoder printed;
   6. times    CUDA-event times of each kernel and its plain version (and of
               the one PyTorch call computing the same function, where there
               is one, K3's and K8's in turns with the kernel's wrapper,
@@ -132,10 +145,21 @@ Phases (any failure exits nonzero before the result line):
               and each instantiation's registers), and K5's two paths and
               K4's two forms in turns over bands and frame shapes
               (reflectance_filtering_tpu_torch/scripts/
-              measure_box_guided.py) (not gated);
+              measure_box_guided.py), K8's sort path and quadratic search
+              in turns, wrapper and device times, on the training step's
+              points spread and crowded and on three other shapes
+              (reflectance_filtering_tpu_torch/scripts/measure_k8.py);
+              the decompose path from phase 5's snapshot:
+              predict_batched of 16 frames of 1080x1920 in batches of 8
+              (frames/s on the host's clock; finite, frame 0 within 1e-4 of
+              the plain per-layer path on the card) and K7's forward at a
+              batch's 16.6 M pixels beside its bound, and
+              decompose_images_batched on 32 PNGs of 768x1024 (wall
+              seconds split into decode, device and write) (not gated);
   7. profile  each slice's, the training step's and the 4K chain's device
               busy time and per-kernel device times (torch.profiler), and
-              the idle share against phase 6's time in the same run; K4's
+              the idle share against phase 6's time in the same run (K8's
+              kernel and the memsets apart in the step's split); K4's
               and K5's calls split into their kernels by each path; K3's
               device time at 32 x 1181 beside indexing's, and the host's
               microseconds per K3 call split into checks, allocation and
@@ -160,9 +184,12 @@ clock), shared-memory table loads over 8.36 T/s (32 four-byte words per SM
 per clock); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -207,6 +234,18 @@ NET_CASES = ([(t, False) for t in ("convStatic", "convStaticWithSigmoid",
                                    "uNet")]
              + [(t, bn) for t in ("convStaticSkipLayers", "cascadeSkipLayers")
                 for bn in (False, True)])
+# K8's quadratic search: a K above the sort path's limit of 8,192
+K8_QUADRATIC_K = 9000
+# K8's sort path with 64-bit keys at 4,096 keys a block: (images, side, K)
+K8_WIDE = (1, 1024, 2048)
+# phase 5d's folder: PNGs (count, h, w), an npz stack, a movie
+DEC_PNGS = [(4, 256, 256), (2, 341, 512), (1, 97, 131)]
+DEC_NPZ = (4, 64, 64)
+DEC_MOVIE = (12, 240, 320)
+# phase 6: full frames through predict_batched, PNGs through
+# decompose_images_batched
+FRAMES, FRAME_HW, FRAME_BATCH = 16, (1080, 1920), 8
+PNG_N, PNG_HW = 32, (768, 1024)
 # the card's peak rates for the bounds (H100 SXM); the float32 and memory
 # rates are the split script's (F32_FLOP_S, HBM_BYTES_S)
 SFU_S = 132 * 16 * 1.98e9                 # 4.18 T expf/s
@@ -423,7 +462,7 @@ def check_training_kernels(dev, seed):
         NetworkConfig, init_network)
     from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-        scatter_pairs, scatter_pairs_plain)
+        _scatter_quadratic, scatter_pairs, scatter_pairs_plain, sort_path)
     gen = torch.Generator(device=dev).manual_seed(seed)
     errs, keep, tc_cases = {}, {}, []
     cases = [("flagship {}x{}x{}".format(TB, H, W), (5, 3, 32, 1),
@@ -527,9 +566,77 @@ def check_training_kernels(dev, seed):
           "{} points".format(b, H, W, k, err, rel, *collided))
     check(rel <= 1e-6, "K8 within 1e-6 of index_put_(accumulate=True)")
     check(torch.equal(got, again), "K8 bitwise equal on a second launch")
+    quad = _scatter_quadratic((b, H, W), *idx, g1, g2)
+    check(sort_path(k) and torch.equal(got, quad), "K8's sort path (taken "
+          "at K={}) bitwise equal to its quadratic search".format(k))
+    # 64-bit keys at the most shared memory of a 4,096-key block
+    wb, wh, wk = K8_WIDE
+    widx = [torch.randint(0, n_, (wb, wk), device=dev, dtype=torch.int32,
+                          generator=gen) for n_ in (wh, wh, wh, wh)]
+    wg1, wg2 = (torch.randn(wb, wk, device=dev, generator=gen)
+                for _ in range(2))
+    wgot = scatter_pairs((wb, wh, wh), *widx, wg1, wg2)
+    wwant = scatter_pairs_plain((wb, wh, wh), *widx, wg1, wg2)
+    wquad = _scatter_quadratic((wb, wh, wh), *widx, wg1, wg2)
+    torch.cuda.synchronize()
+    wrel = (wgot - wwant).abs().max().item() / wwant.abs().max().item()
+    print("K8 {}x{}x{}, K={} (64-bit keys): {:.2e} of max".format(
+        wb, wh, wh, wk, wrel))
+    check(sort_path(wk) and wrel <= 1e-6 and torch.equal(wgot, wquad),
+          "K8 at {}x{}, K={} within 1e-6 of index_put_ and bitwise equal "
+          "to its quadratic search".format(wh, wh, wk))
+    # the quadratic search where the sort path cannot take K
+    qb, qk = 2, K8_QUADRATIC_K
+    qidx = [torch.randint(0, n_, (qb, qk), device=dev, dtype=torch.int32,
+                          generator=gen) for n_ in (H, W, H, W)]
+    qg1, qg2 = (torch.randn(qb, qk, device=dev, generator=gen)
+                for _ in range(2))
+    qgot = scatter_pairs((qb, H, W), *qidx, qg1, qg2)
+    qwant = scatter_pairs_plain((qb, H, W), *qidx, qg1, qg2)
+    torch.cuda.synchronize()
+    qrel = (qgot - qwant).abs().max().item() / qwant.abs().max().item()
+    print("K8 {}x{}x{}, K={} (quadratic search): {:.2e} of max".format(
+        qb, H, W, qk, qrel))
+    check(not sort_path(qk) and qrel <= 1e-6, "K8 at K={}, above the sort "
+          "path's limit, within 1e-6 of index_put_(accumulate=True)".format(
+              qk))
     errs["whdr_scatter"] = err
     keep["scatter"] = (idx, g1, g2)
     return errs, keep
+
+
+def decompose_inputs(folder, seed):
+    """Phase 5d's folder: DEC_PNGS photos, an npz stack, an mp4v movie
+    and a file no decoder reads.  Returns (the PNG names the decompose
+    writes in each folder, the movie names).  Fails if the card's machine
+    cannot write mp4v."""
+    import cv2
+    os.makedirs(folder)
+    rng = np.random.RandomState(seed)
+    pngs = []
+    for n, h, w in DEC_PNGS:
+        for img in photos(rng, n, h, w):
+            stem = "photo{}x{}_{}".format(h, w, len(pngs))
+            cv2.imwrite(os.path.join(folder, stem + ".png"),
+                        np.moveaxis(img, 0, -1))
+            pngs += [stem + suffix + ".png" for suffix in ("-r", "-s",
+                                                           "-RS_est")]
+    stack = np.moveaxis(photos(rng, *DEC_NPZ), 1, -1)[..., ::-1]
+    np.savez(os.path.join(folder, "stack.npz"), images=stack)
+    n, h, w = DEC_MOVIE
+    writer = cv2.VideoWriter(os.path.join(folder, "clip.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (w, h),
+                             True)
+    check(writer.isOpened(), "cv2.VideoWriter opens mp4v on this machine")
+    for img in photos(rng, n, h, w):
+        writer.write(np.ascontiguousarray(np.moveaxis(img, 0, -1)))
+    writer.release()
+    with open(os.path.join(folder, "broken.png"), "wb") as f:
+        f.write(b"not a png")
+    movies = ["clip" + m + ".mp4" for m in (
+        "-combined", "-r", "-s", "-baseline_rgbMean-combined",
+        "-baseline_rgbNorm-combined")]
+    return pngs, movies
 
 
 def check_network_families(dev, seed):
@@ -669,11 +776,18 @@ def main():
     from reflectance_filtering_tpu_torch.scripts import (
         measure_box_guided as box_guided,
         measure_k2_table as k2_table, measure_k6_float as k6_float,
+        measure_k8 as k8_paths,
         measure_k6_table as k6_table,
         measure_k9_passes as k9_passes,
         measure_train_bwd_split as split)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         _check_indices)
+    from reflectance_filtering_tpu_torch.data import native_loader
+    from reflectance_filtering_tpu_torch.models.networks import (
+        apply_network, params_to_torch)
+    from reflectance_filtering_tpu_torch.train.predict import (
+        decompose_images_batched, make_predict_fn, predict_batched)
+    from reflectance_filtering_tpu_torch.utils.image import srgb_to_rgb_t
     dev = torch.device("cuda", 0)
 
     phase("1. device")
@@ -1442,6 +1556,8 @@ def main():
     check_network_families(dev, args.seed)
 
     phase("5. the train CLI's fit stage on cuda and on the CPU")
+    ckpt_dir = tempfile.TemporaryDirectory()    # removed at the end of phase 6
+    flagship_ckpt = None
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "lmdbs")
         os.makedirs(os.path.join(root, "iiw"))
@@ -1500,6 +1616,11 @@ def main():
                     prog = json.load(f)["test"]
                 cli_out[device] = (prog, load_checkpoint(os.path.join(
                     exp, "snapshots", snaps[-1]))[0])
+                if device == "cuda" and cfg == flagship:
+                    # the checkpoint of phases 5d and 6's decompose runs
+                    flagship_ckpt = shutil.copy(
+                        os.path.join(exp, "snapshots", snaps[-1]),
+                        ckpt_dir.name)
             (prog_c, par_c), (prog_p, par_p) = (cli_out["cuda"],
                                                 cli_out["cpu"])
             dw = abs(prog_c[-1]["WHDR"] - prog_p[-1]["WHDR"]) / 100.0
@@ -1642,6 +1763,73 @@ def main():
         check(fast.shape == (H, W) and err <= 1e-3,
               "joint_bilateral_filter_fast on cuda within 1e-3 of the CPU "
               "(max {:.2e})".format(err))
+
+    phase("5d. the train CLI's --decompose from phase 5's flagship snapshot, "
+          "on cuda and on the CPU")
+    check(flagship_ckpt is not None, "phase 5 kept the flagship's snapshot "
+          + os.path.basename(flagship_ckpt or ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        dec = {}
+        for device in ("cuda", "cpu"):
+            folder = os.path.join(tmp, "in_" + device)
+            expected = decompose_inputs(folder, args.seed + 11)
+            out_root = os.path.join(tmp, "out_" + device)
+            reset_launches()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                train_cli.main(["--stage=predict", "--predictCaffemodel",
+                                flagship_ckpt, "--decompose", folder,
+                                "--experiment=dec", "--data_root",
+                                os.path.join(tmp, "no_dataset"),
+                                "--results_root", out_root, "--device",
+                                device])
+            print("train CLI --decompose on {}: {:.2f} s; the image "
+                  "decoders served {}".format(
+                      device, time.perf_counter() - t0,
+                      native_loader.read_images_rgb.last_decoders))
+            if device == "cuda":
+                read_launches("train CLI --decompose on cuda",
+                              ("cnn_train_fwd",))
+            text = log.getvalue()
+            check("broken.png" in text and "was not possible" in text,
+                  "--decompose on {}: the unreadable file reported, the run "
+                  "returned".format(device))
+            dec[device] = (folder, os.path.join(out_root, "dec"), expected)
+        (c_in, c_res, (pngs, movies)), (p_in, p_res, _) = (dec["cuda"],
+                                                           dec["cpu"])
+        worst, missing = 0, []
+        for sub in ("decompositions_linear", "decompositions_sRGB"):
+            check(all(os.path.isfile(os.path.join(res, sub, "0command.txt"))
+                      for res in (c_res, p_res)),
+                  "0command.txt in {} of both runs".format(sub))
+            for name in pngs:
+                a = cv2.imread(os.path.join(c_res, sub, name))
+                b_ = cv2.imread(os.path.join(p_res, sub, name))
+                if a is None or b_ is None or a.shape != b_.shape:
+                    missing.append(os.path.join(sub, name))
+                    continue
+                worst = max(worst, int(np.abs(a.astype(int) - b_).max()))
+        check(not missing and worst <= 1, "{} PNGs written on cuda and on the "
+              "CPU, within 1 uint8 level (max {}; missing: {})".format(
+                  2 * len(pngs), worst, missing or "none"))
+        with np.load(os.path.join(c_in, "stack_decomposed.npz")) as g_, \
+                np.load(os.path.join(p_in, "stack_decomposed.npz")) as w_:
+            npz_err = max(float(np.abs(g_[key].astype(np.float64)
+                                       - w_[key]).max()) for key in w_.files)
+            check(len(w_.files) == 7 and npz_err <= 1e-4, "npz: 7 arrays on "
+                  "cuda within 1e-4 of the CPU's (max {:.2e})".format(
+                      npz_err))
+        srgb = os.path.join(c_res, "decompositions_sRGB")
+        check(all(os.path.isfile(os.path.join(srgb, m)) for m in movies),
+              "the five movie files: " + ", ".join(movies))
+        cap = cv2.VideoCapture(os.path.join(srgb, "clip-combined.mp4"))
+        size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+        cap.release()
+        check(size == (3 * DEC_MOVIE[2], DEC_MOVIE[1], DEC_MOVIE[0]),
+              "the triptych is 3x as wide: {}x{}, {} frames".format(*size))
 
     phase("6. times (CUDA events; inputs resident on the card)")
     times = {}
@@ -1826,6 +2014,82 @@ def main():
                   mp / k5x3_ms[name] * 1e3))
     print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
 
+    phase("6. K8's sort path and quadratic search, in turns, on the training "
+          "step's points and beside them")
+    k8_paths.print_table(k8_paths.measure(k8_paths.make_inputs(dev,
+                                                               args.seed)))
+
+    phase("6. the decompose path at full size, from phase 5's flagship "
+          "snapshot")
+    dec_params = params_to_torch(load_checkpoint(flagship_ckpt)[0], dev)
+    predict = make_predict_fn(flagship)
+    fgen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    fh, fw = FRAME_HW
+    with torch.no_grad():
+        frames = srgb_to_rgb_t(device_photos(fgen, FRAMES, fh, fw) / 255.0)
+        frames = frames.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+    predict_batched(predict, dec_params, frames[:FRAME_BATCH], FRAME_BATCH,
+                    dev)                                    # warm-up
+    torch.cuda.synchronize()
+    before = k7.trunk_forward.launches
+    t0 = time.perf_counter()
+    frame_out = predict_batched(predict, dec_params, frames, FRAME_BATCH, dev)
+    frame_s = time.perf_counter() - t0
+    frame_launches = k7.trunk_forward.launches - before
+    refl = frame_out["reflectance"]
+    with torch.no_grad():
+        first = torch.from_numpy(frames[:1]).to(dev)
+        plain = torch.relu(apply_network(dec_params, first, flagship,
+                                         kernels=False)["RS_est"])
+        frame_err = np.abs(refl[:1] - plain.cpu().numpy()).max()
+    check(refl.shape == (FRAMES, fh, fw, 1) and bool(np.isfinite(refl).all())
+          and frame_launches == FRAMES // FRAME_BATCH and frame_err <= 1e-4,
+          "predict_batched of {} {}x{} frames in batches of {}: finite, K7's "
+          "forward once a batch, frame 0 within 1e-4 of the plain per-layer "
+          "path on the card (max {:.2e})".format(FRAMES, fh, fw, FRAME_BATCH,
+                                                frame_err))
+    fpx = FRAME_BATCH * fh * fw
+    fx = torch.from_numpy(frames[:FRAME_BATCH]).to(dev).reshape(fpx, 3)
+    fflat = k7.pack(*k7._matrices(dec_params, tshape[0], ""))
+    frame_k7_ms = time_ms(lambda: k7.trunk_forward(fx, fflat, tshape), 10)
+    fmacs, ffuse = trunk_fmas(tshape)
+    frame_k7_bound = bound(tf32_macs=fmacs * fpx, flops=2 * ffuse * fpx,
+                           nbytes=16 * fpx + 4 * k7.num_params(tshape))
+    print("predict_batched, {} frames of {}x{} in batches of {}: {:.3f} s = "
+          "{:.2f} frames/s (host clock; the copies to and from the card "
+          "included)".format(FRAMES, fh, fw, FRAME_BATCH, frame_s,
+                             FRAMES / frame_s))
+    print("K7 forward at {} pixels ({} frames): {:.4f} ms, bound {:.4f} ms "
+          "({}, 3xTF32; {:.1%} of its rate)".format(
+              fpx, FRAME_BATCH, frame_k7_ms, frame_k7_bound[0],
+              frame_k7_bound[1], frame_k7_bound[0] / frame_k7_ms))
+    del fx, frames, frame_out
+    ph, pw = PNG_HW
+    png_dir = os.path.join(ckpt_dir.name, "pngs")
+    os.makedirs(png_dir)
+    with torch.no_grad():
+        pngs = device_photos(fgen, PNG_N, ph, pw).to(torch.uint8)
+        pngs = pngs.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+    png_paths = []
+    for i, img in enumerate(pngs):
+        png_paths.append(os.path.join(png_dir, "photo{:02d}.png".format(i)))
+        cv2.imwrite(png_paths[-1], img)
+    t0 = time.perf_counter()
+    done = decompose_images_batched(png_paths, dec_params, flagship,
+                                    os.path.join(ckpt_dir.name, "png_out"),
+                                    batch_size=16, device=dev)
+    png_s = time.perf_counter() - t0
+    png_split = decompose_images_batched.last_seconds
+    check(sorted(done) == png_paths, "decompose_images_batched wrote all {} "
+          "PNGs of {}x{}".format(PNG_N, ph, pw))
+    print("decompose_images_batched, {} PNGs of {}x{} in batches of 16: "
+          "{:.3f} s wall = {:.2f} images/s; decode {:.3f} s, device {:.3f} "
+          "s, write {:.3f} s (host clock); decoders {}".format(
+              PNG_N, ph, pw, png_s, PNG_N / png_s, png_split["decode"],
+              png_split["device"], png_split["write"],
+              native_loader.read_images_rgb.last_decoders))
+    ckpt_dir.cleanup()
+
     phase("6. K5's two paths and K4's two forms, in turns, bands and widths")
     box_guided.print_tables(box_guided.measure(dev, args.seed))
 
@@ -1884,7 +2148,8 @@ def main():
         parts = {"K7 forward": ("trunk_fwd",),
                  "K7 backward + block sum": ("trunk_bwd", "sum_partials"),
                  "K3 gather": ("whdr_gather_kernel",),
-                 "K8 scatter + its memset": ("whdr_scatter", "Memset"),
+                 "K8 scatter": ("whdr_scatter",),
+                 "memsets (K8's plane among them)": ("Memset",),
                  "Adam": ("multi_tensor_apply", "adam", "Adam")}
         part_ms = {part: 0.0 for part in parts}
         part_ms["loss glue (everything else)"] = 0.0

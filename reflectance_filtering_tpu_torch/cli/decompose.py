@@ -10,11 +10,16 @@ path of ``decompose_planar``; on the CPU K1's wrapper runs its plain
 version.
 
   python -m reflectance_filtering_tpu_torch.cli.decompose \\
-      --filename_in photo.png --path_out out/ [--device cpu]
+      --filename_in photo.png --path_out out/ [--device cpu] \\
+      [--profile_dir trace/]
+
+``--profile_dir`` writes a torch.profiler trace (Chrome format) of the
+decomposition (``utils/profiling.py::device_trace``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Dict, Optional, Sequence
 
@@ -98,18 +103,23 @@ def decompose_image(filename_in: str, path_out: str,
 def decompose_images(filenames: Sequence[str], path_out: str,
                      net: Optional[ReflectanceCNN] = None,
                      batch_size: int = 16) -> Dict[str, np.ndarray]:
-    """Batched multi-image mode: images are read with cv2 (a file that
-    cannot be read is reported and skipped), grouped by (H, W), and each
-    group runs through K1 in planar batches of ``batch_size``."""
+    """Batched multi-image mode: images are read through the native
+    thread-pool decoder (``data/native_loader.read_images_rgb``: a header
+    probe, one batch decode per same-size group, bit-exact against cv2 for
+    PNG; a file nothing can read is reported and skipped), grouped by
+    (H, W), and each group runs through K1 in planar batches of
+    ``batch_size``."""
+    from ..data.native_loader import read_images_rgb
+
     if net is None:
         net = ReflectanceCNN()
+    items, failed = read_images_rgb(filenames)
+    for fn in failed:
+        print("Decomposing file", fn, "was not possible")
     groups: Dict = {}
-    for fn in filenames:
-        try:
-            img = iu.imread(fn)
-        except IOError:
-            print("Decomposing file", fn, "was not possible")
-            continue
+    for fn, rgb in items:
+        # the decoder gives RGB; the pipeline's contract is cv2's BGR
+        img = np.ascontiguousarray(rgb[:, :, ::-1])
         groups.setdefault(img.shape, []).append((fn, img))
     out = {}
     for items in groups.values():
@@ -135,12 +145,20 @@ def main(argv=None):
     parser.add_argument("--path_out",
                         help="""Where the resulting decompositions should be
                                 saved.""")
+    parser.add_argument("--profile_dir", default=None,
+                        help="""Write a torch.profiler trace (Chrome
+                                format) of the decomposition here.""")
     add_device_flag(parser)
     args = parser.parse_args(argv)
     if args.filename_in and args.path_out:
         device = resolve_device(parser, args.device)
-        decompose_image(args.filename_in, args.path_out,
-                        ReflectanceCNN(device=device))
+        net = ReflectanceCNN(device=device)
+        trace = contextlib.nullcontext()
+        if args.profile_dir:
+            from ..utils.profiling import device_trace
+            trace = device_trace(args.profile_dir)
+        with trace:
+            decompose_image(args.filename_in, args.path_out, net)
     else:
         parser.print_help()
 

@@ -11,21 +11,29 @@ experiment lifecycle as the JAX package: fit -> a checkpoint every
 --checkpoint_interval samples with the live val WHDR -> the final and every
 intermediate snapshot scored on the val split -> progressions/*.json;
 predict -> hyperparameters recovered from the checkpoint filename -> score
-the val split.  Checkpoints are the JAX package's .npz layout, so either
-package resumes or scores the other's.  ``--device`` (default cuda) picks
-the card, where the flagship's trunk runs the fused kernel K7 and the WHDR
-hinge K3/K8; without a GPU the CLI exits and asks for ``--device cpu``.
+the val split, or, with ``--decompose <file or folder>``, decompose photos,
+.npz stacks and movies (``train/predict.py::decompose_files``) without
+loading any dataset, with the reference's ``0command.txt`` audit log in
+both decomposition folders.  Checkpoints are the JAX package's .npz
+layout, so either package resumes, scores or decomposes with the other's.
+``--device`` (default cuda) picks the card, where the flagship's trunk runs
+the fused kernel K7 and the WHDR hinge K3/K8; without a GPU the CLI exits
+and asks for ``--device cpu``.  ``--profile_dir`` writes a torch.profiler
+trace of the fit stage; every run draws the network graph into
+``networks/<params>.png`` (models/draw.py).
 
-Not ported yet, each refused with a message: ``--decompose`` (ROADMAP
-module queue item 12), ``--profile_dir`` (a tracing PR, item 5); the
-network-graph PNG of models/draw.py is skipped (item 11).
+    python -m reflectance_filtering_tpu_torch.cli.train --stage=predict \\
+        --predictCaffemodel <snapshot>.npz --decompose <photos/> \\
+        --results_root <Results> [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
+import shutil
 import sys
 import timeit
 
@@ -37,7 +45,7 @@ from ..train.description import get_description, parse_description
 from ..train.loop import LossConfig, fit, make_val_whdr_fn
 from ..train.monitors import (CombineLosses, FilterVisualizer, JsonlLogger,
                               ProgressPrinter, RunningAverage)
-from ..train.predict import make_predict_fn, predict_and_score
+from ..train.predict import decompose_files, make_predict_fn, predict_and_score
 from . import add_device_flag, resolve_device
 
 FLAGS_FIT = ["fit", "f", "train"]
@@ -101,12 +109,13 @@ def build_parser():
              "('high'/'default': TF32 on the card); the fused trunk kernel "
              "always runs full float32")
     add("--decompose", action="append",
-        help="decompose images in a folder or a video (not ported yet)")
+        help="decompose images in a folder or a video")
     add("--data_root", default=os.path.join(os.path.expanduser("~"), "LMDBs"))
     add("--results_root",
         default=os.path.join(os.path.expanduser("~"), "Results"))
     add("--profile_dir", default=None,
-        help="device trace of the fit stage (not ported yet)")
+        help="write a torch.profiler trace (Chrome format) of the fit "
+             "stage here")
     add_device_flag(parser)
     return parser
 
@@ -208,8 +217,13 @@ def fit_predict_net(args, results_dir: str, device):
                            net_params + ".json"), "w") as f:
         json.dump({"network_config": net_cfg.__dict__,
                    "loss_config": loss_cfg.__dict__}, f, indent=2)
-    print("network graph PNG skipped: models/draw.py is not ported yet "
-          "(ROADMAP module queue item 11)", file=sys.stderr)
+    try:
+        from ..models.draw import render_network_graph
+        render_network_graph(net_cfg, os.path.join(
+            results_dir, "networks", net_params + ".png"))
+    except Exception as err:  # noqa: BLE001 — an artifact, not the run
+        print("network graph rendering failed:", repr(err),
+              file=sys.stderr)
 
     iterations = args.iterations
     if iterations is None:
@@ -218,18 +232,22 @@ def fit_predict_net(args, results_dir: str, device):
         iterations = 1
 
     # the training blob loads lazily: a --startOver=0 re-invocation whose
-    # checkpoint already covers the requested iterations never touches it
+    # checkpoint already covers the requested iterations never touches it.
+    # A decompose-only predict never touches the dataset: a checkpoint must
+    # decompose photos on a machine that has no IIW blobs at all
+    decompose_only = args.stage in FLAGS_PREDICT and args.decompose
     load_X = None
     X_val = None
     if not args.test:
         if args.stage in FLAGS_FIT:
             load_X = lambda: getData("trainValTest_train")  # noqa: E731
-        X_val = getData("trainValTest_val")
+        if not decompose_only:
+            X_val = getData("trainValTest_val")
     else:
         if args.stage in FLAGS_FIT:
             load_X = lambda: getData("bigTrainMiniValTest_train")  # noqa
             X_val = getData("bigTrainMiniValTest_val")
-        elif args.stage in FLAGS_PREDICT:
+        elif args.stage in FLAGS_PREDICT and not decompose_only:
             X_val = getData("trainValTest_test")
 
     if args.stage in FLAGS_FIT:
@@ -283,10 +301,6 @@ def fit_predict_net(args, results_dir: str, device):
                       "with file", cpath)
 
         if run_training:
-            if args.profile_dir:
-                raise NotImplementedError(
-                    "--profile_dir is not ported yet (ROADMAP module queue "
-                    "item 5: a tracing PR)")
             X = load_X()
             callbacks = [CombineLosses(args.loss_scale_whdr,
                                        args.loss_scale_lambert),
@@ -304,7 +318,11 @@ def fit_predict_net(args, results_dir: str, device):
             val_fn = (make_val_whdr_fn(net_cfg, X_val, args.batch_size,
                                        device)
                       if X_val is not None else None)
-            with matmul_precision(args.matmul_precision):
+            trace_ctx = contextlib.nullcontext()
+            if args.profile_dir:
+                from ..utils.profiling import device_trace
+                trace_ctx = device_trace(args.profile_dir)
+            with matmul_precision(args.matmul_precision), trace_ctx:
                 fit(net_cfg, loss_cfg, X, iterations, args.batch_size,
                     args.solverType, args.base_lr, args.random_seed,
                     args.comparisonsType, init_params=init_params,
@@ -370,7 +388,20 @@ def fit_predict_net(args, results_dir: str, device):
 
     if args.predictCaffemodel and args.stage in FLAGS_PREDICT:
         params = _load_params_any(args.predictCaffemodel, device)
-        if X_val is not None:
+        if args.decompose:
+            print("Decompose input")
+            files = []
+            for entry in args.decompose:
+                if os.path.isfile(entry):
+                    files.append(entry)
+                elif os.path.isdir(entry):
+                    for f in sorted(os.listdir(entry)):
+                        files.append(os.path.join(entry, f))
+                else:
+                    print(entry, "is neither a file nor folder")
+            decompose_files(files, params, net_cfg, results_dir,
+                            batch_size=args.batch_size, device=device)
+        elif X_val is not None:
             predict_and_score(X_val, params, net_cfg, results_dir,
                               os.path.splitext(os.path.basename(
                                   args.predictCaffemodel))[0],
@@ -381,16 +412,22 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     device = resolve_device(parser, args.device)
-    if args.decompose:
-        raise NotImplementedError(
-            "--decompose is not ported yet (ROADMAP module queue item 12: "
-            "the predict/decompose family); use "
-            "reflectance_filtering_tpu_torch.cli.decompose for photos")
     print("Arguments:")
     print(vars(args))
     results_dir = os.path.join(args.results_root, args.experiment_name)
     for d in RESULT_SUBDIRS:
         os.makedirs(os.path.join(results_dir, d), exist_ok=True)
+    if args.decompose:
+        # 0command.txt audit log (train_with_barrista.py:333-346)
+        filename = os.path.join(results_dir, "decompositions_linear",
+                                "0command.txt")
+        with open(filename, "a") as command:
+            for a in (argv if argv is not None else sys.argv):
+                command.write(a + " ")
+            command.write("\n")
+        shutil.copy(filename, os.path.join(results_dir,
+                                           "decompositions_sRGB",
+                                           "0command.txt"))
     fit_predict_net(args, results_dir, device)
 
 

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "device_attr.cuh"
+
 // Each source that includes this file gets its own copy (internal linkage),
 // so the sources link into one library without clashing symbols.
 namespace rf {
@@ -33,25 +35,6 @@ constexpr int kColThreads = 128;  // columns per block of a column pass
 constexpr int kColSeg = 128;      // rows per thread of a column pass, at most
 constexpr int kColSegMin = 32;    // ... and at least
 constexpr int kColBlocksPerSM = 4;
-
-// Attribute A of the current device, read once per device; `fallback` (an
-// H100's value) where it cannot be read.
-template <cudaDeviceAttr A>
-inline int device_attr(int fallback) {
-  static int value[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
-    cudaGetLastError();  // do not let it surface at a later launch
-    return fallback;
-  }
-  if (value[dev] == 0 &&
-      cudaDeviceGetAttribute(&value[dev], A, dev) != cudaSuccess) {
-    cudaGetLastError();
-    value[dev] = 0;
-    return fallback;
-  }
-  return value[dev];
-}
 
 // Rows per thread of a column pass over `planes` planes of h x w: kColSeg,
 // halved (to kColSegMin at least) while the grid would have fewer than

@@ -70,6 +70,8 @@ _SIGNATURES = {
                            _F, _F, _P],
     # y1, x1, y2, x2, g1, g2, dplane, b, h, w, k, stream
     "rf_whdr_scatter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rf_whdr_scatter_quadratic": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
     # n, ci, f, cout, p, out[2] (no stream: a host-side query)
     "rf_cnn_train_plan": [_I, _I, _I, _I, _L, _P],
     # x, w, pre, n, ci, f, cout, p, stream

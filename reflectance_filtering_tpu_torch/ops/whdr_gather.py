@@ -12,7 +12,16 @@ At the serving shape (32 x 1,181) K3 runs ~2 us on the card, so a call
 costs its host path: the checks in one pass, one [2, B, K] allocation whose
 rows are l1 and l2, and one ctypes launch (``_build.launch``); the wrapper
 keeps each short, so that the call costs less host time than one indexing
-call (chip_smoke.py phase 7 splits it).
+call (chip_smoke.py phase 7 splits it).  K8's wrapper takes the same path:
+its six tensors checked in one pass, one allocation, one launch.
+
+K8 runs one of two kernels, chosen by shape (:func:`sort_path`): up to
+``SORT_MAX_POINTS`` points an image, each image's pixels are cut into
+bands, one block a band (as many as fill the SMs once, at most 8), and a
+block sorts the points that read its band by (pixel, comparison order) in
+a bitonic network; above, the quadratic search, which
+:func:`_scatter_quadratic` also runs at any K for tests and timings.  Both
+give the same bits.
 """
 from __future__ import annotations
 
@@ -45,25 +54,38 @@ def scatter_pairs_plain(shape: Sequence[int], y1: torch.Tensor,
     return out.index_put_(index, torch.cat([g1, g2], dim=1), accumulate=True)
 
 
-_INDEX_NAMES = ("y1", "x1", "y2", "x2")
+# points an image (2K) up to which K8 sorts them in one block (kSortMax in
+# csrc/whdr_gather.cu)
+SORT_MAX_POINTS = 16384
+
+_INDEX_ARGS = tuple((name, torch.int32) for name in ("y1", "x1", "y2", "x2"))
+_SCATTER_ARGS = _INDEX_ARGS + (("g1", torch.float32), ("g2", torch.float32))
 
 
-def _check_indices(plane_shape, device, idx) -> None:
-    """Raise unless the four indices are contiguous int32 [B, K] tensors
-    of one shape, with the plane's B, on ``device``: one pass, whose common
-    case is a few attribute reads per tensor (the messages come from
-    ``check_tensor``)."""
-    shape = idx[0].shape if isinstance(idx[0], torch.Tensor) else None
-    for name, t in zip(_INDEX_NAMES, idx):
-        if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+def _check_indices(plane_shape, device, tensors, args=_INDEX_ARGS) -> None:
+    """Raise unless ``tensors`` (named and typed by ``args``: the four
+    indices, int32, and for K8 the two cotangents, float32) are contiguous
+    [B, K] tensors of one shape, with the plane's B, on ``device``: one
+    pass, whose common case is a few attribute reads per tensor (the
+    messages come from ``check_tensor``)."""
+    shape = tensors[0].shape if isinstance(tensors[0], torch.Tensor) else None
+    for (name, dtype), t in zip(args, tensors):
+        if not (isinstance(t, torch.Tensor) and t.dtype == dtype
                 and t.dim() == 2 and t.is_contiguous()):
-            _build.check_tensor(t, name, torch.int32, 2)
+            _build.check_tensor(t, name, dtype, 2)
         if t.shape != shape or shape[0] != plane_shape[0]:
-            raise ValueError("indices must all be [B, K] with B = {}, got "
-                             "{} for {}".format(plane_shape[0],
-                                                tuple(t.shape), name))
+            raise ValueError("indices and cotangents must all be [B, K] with "
+                             "B = {}, got {} for {}".format(
+                                 plane_shape[0], tuple(t.shape), name))
         if t.device != device:
-            raise ValueError("indices and plane must share a device")
+            raise ValueError("indices, cotangents and plane must share a "
+                             "device")
+
+
+def sort_path(k: int) -> bool:
+    """Whether K8 takes its sort path for K comparisons an image (the
+    kernel's own rule, by shape only)."""
+    return 2 * k <= SORT_MAX_POINTS
 
 
 def _gather(plane: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,6 +107,21 @@ def _gather(plane: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
     return out.unbind(0)
 
 
+def _scatter(shape: Sequence[int], tensors, entry: str) -> torch.Tensor:
+    b, h, w = (int(v) for v in shape)
+    g1 = tensors[4]
+    _check_indices((b, h, w), g1.device, tensors, _SCATTER_ARGS)
+    if g1.device.type == "cpu":
+        return scatter_pairs_plain((b, h, w), *tensors)
+    _build.require_cuda(g1, "scatter_pairs")
+    out = torch.empty((b, h, w), dtype=torch.float32, device=g1.device)
+    if out.numel():
+        _build.launch(entry, g1.device, *(t.data_ptr() for t in tensors),
+                      out.data_ptr(), b, h, w, tensors[0].shape[1])
+        scatter_pairs.launches += 1
+    return out
+
+
 def scatter_pairs(shape: Sequence[int], y1: torch.Tensor, x1: torch.Tensor,
                   y2: torch.Tensor, x2: torch.Tensor, g1: torch.Tensor,
                   g2: torch.Tensor) -> torch.Tensor:
@@ -94,27 +131,19 @@ def scatter_pairs(shape: Sequence[int], y1: torch.Tensor, x1: torch.Tensor,
 
     A CPU tensor runs :func:`scatter_pairs_plain`; a CUDA tensor launches
     K8, which sums each pixel's cotangents in comparison order with no
-    float atomic (bitwise repeatable)."""
-    idx = (y1, x1, y2, x2)
-    b, h, w = (int(v) for v in shape)
-    _check_indices((b, h, w), g1.device, idx)
-    for name, t in (("g1", g1), ("g2", g2)):
-        _build.check_tensor(t, name, torch.float32, 2)
-        if t.shape != y1.shape or t.device != g1.device:
-            raise ValueError("{} must be [B, K] like the indices".format(name))
-    if g1.device.type == "cpu":
-        return scatter_pairs_plain((b, h, w), *idx, g1, g2)
-    _build.require_cuda(g1, "scatter_pairs")
-    if b > 65535:
-        raise ValueError("batch {} exceeds the kernel's grid limit of "
-                         "65535".format(b))
-    out = torch.empty((b, h, w), dtype=torch.float32, device=g1.device)
-    if out.numel():
-        _build.launch("rf_whdr_scatter", g1.device,
-                      *(t.data_ptr() for t in idx), g1.data_ptr(),
-                      g2.data_ptr(), out.data_ptr(), b, h, w, y1.shape[1])
-        scatter_pairs.launches += 1
-    return out
+    float atomic (bitwise repeatable), by the kernel :func:`sort_path`
+    picks."""
+    return _scatter(shape, (y1, x1, y2, x2, g1, g2), "rf_whdr_scatter")
+
+
+def _scatter_quadratic(shape: Sequence[int], y1: torch.Tensor,
+                       x1: torch.Tensor, y2: torch.Tensor, x2: torch.Tensor,
+                       g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    """:func:`scatter_pairs` through K8's quadratic search at any K (the
+    tests and timings that hold the sort path against it); counted in
+    ``scatter_pairs.launches``."""
+    return _scatter(shape, (y1, x1, y2, x2, g1, g2),
+                    "rf_whdr_scatter_quadratic")
 
 
 scatter_pairs.launches = 0

@@ -58,6 +58,17 @@ def srgb_to_rgb_t(srgb: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rgb_uint8_to_linear(rgb_u8):
+    """uint8 RGB HWC -> float32 linear RGB, computed in float64.
+
+    The linearization of the predict/decompose family
+    (train_with_barrista_helper.py:653-662 runs numpy's default float64
+    before the blob's float32 cast); the decompose CLI's K1 path
+    linearizes in float32 instead."""
+    return srgb_to_rgb(rgb_u8.astype(np.float64) / 255.0).astype(
+        np.float32)
+
+
 def imread(filename):
     """Read an image as uint8 BGR HWC; raise on failure."""
     import cv2

@@ -658,22 +658,47 @@ def test_trunk_through_apply_network(dev):
         1e-5 * plain.abs().max())
 
 
-@pytest.mark.parametrize("b,h,w,k", [(20, 256, 256, 1181), (2, 3, 3, 1500),
-                                     (3, 17, 9, 1)])
-def test_scatter_kernel_matches_index_put(dev, b, h, w, k):
-    """K8 against index_put_(accumulate=True), collisions forced by small
-    planes: within 1e-6 of the largest value, bitwise equal on a second
-    launch."""
+def _scatter_inputs(dev, b, h, w, k):
     g = torch.Generator(device=dev).manual_seed(3)
     idx = [torch.randint(0, n, (b, k), device=dev, dtype=torch.int32,
                          generator=g) for n in (h, w, h, w)]
     g1, g2 = (torch.randn(b, k, device=dev, generator=g) for _ in range(2))
+    return idx, g1, g2
+
+
+@pytest.mark.parametrize("b,h,w,k", [(20, 256, 256, 1181), (2, 3, 3, 1500),
+                                     (3, 17, 9, 1), (2, 40, 30, 9000)])
+def test_scatter_kernel_matches_index_put(dev, b, h, w, k):
+    """K8 against index_put_(accumulate=True), collisions forced by small
+    planes: within 1e-6 of the largest value, bitwise equal on a second
+    launch.  K = 9000 (18,000 points an image) is above the sort path's
+    limit: the quadratic search runs."""
+    idx, g1, g2 = _scatter_inputs(dev, b, h, w, k)
     before = scatter_pairs.launches
     got = scatter_pairs((b, h, w), *idx, g1, g2)
     assert scatter_pairs.launches == before + 1
     want = scatter_pairs_plain((b, h, w), *idx, g1, g2)
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
     assert torch.equal(got, scatter_pairs((b, h, w), *idx, g1, g2))
+
+
+@pytest.mark.parametrize("b,h,w,k", [(20, 256, 256, 1181), (2, 3, 3, 1500),
+                                     (3, 17, 9, 1), (1, 2048, 2048, 600),
+                                     (1, 1024, 1024, 2048),
+                                     (2, 64, 64, 8192)])
+def test_scatter_sort_path_equals_quadratic(dev, b, h, w, k):
+    """K8's sort path bitwise equal to its quadratic search: the same
+    cotangents summed in the same order.  2048 x 2048 at K = 600 needs the
+    64-bit key; 1024 x 1024 at K = 2048 too, at 4,096 keys a block, whose
+    shared memory is just above 48 KB; K = 8192 is the largest K the sort
+    path takes."""
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        _scatter_quadratic, sort_path)
+    assert sort_path(k)
+    idx, g1, g2 = _scatter_inputs(dev, b, h, w, k)
+    got = scatter_pairs((b, h, w), *idx, g1, g2)
+    want = _scatter_quadratic((b, h, w), *idx, g1, g2)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape,p", [((5, 3, 32, 1), 4 * 96 * 128),
@@ -831,3 +856,69 @@ def test_chain_passes_alone_are_the_entry_points(dev):
     for p, seg in ((6, 32), (0, -1)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             measure_k9_passes.run_pass(p, seg, buf)
+
+
+def test_train_cli_decompose_on_cuda_matches_cpu(dev, tmp_path):
+    """The train CLI's ``--stage=predict --decompose`` of the flagship's
+    trunk (5 layers of 32 1x1 filters, rDirectly) on cuda, through K7's
+    forward, against ``--device cpu`` on the same seeded checkpoint and
+    files: every PNG within 1 uint8 level, the npz arrays within 1e-4."""
+    import os
+
+    import cv2
+
+    from reflectance_filtering_tpu_torch.cli.train import main
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    rng = np.random.RandomState(9)
+    ckpt = str(tmp_path / "seeded.npz")
+    save_checkpoint(ckpt, init_network(NetworkConfig(),
+                                       torch.Generator().manual_seed(9)))
+    flags = ["--networkType=convStaticSkipLayers", "--numLayers=5",
+             "--num_filters_log=5", "--kernel_pad=0",
+             "--RS_est_mode=rDirectly"]
+    images = [(rng.rand(40, 56, 3) * 255).astype(np.uint8) for _ in range(3)]
+    stack = (rng.rand(2, 16, 16, 3) * 255).astype(np.uint8)
+    res = {}
+    for device in ("cuda", "cpu"):
+        folder = tmp_path / device
+        folder.mkdir()
+        for i, img in enumerate(images):
+            cv2.imwrite(str(folder / "p{}.png".format(i)), img)
+        np.savez(str(folder / "s.npz"), images=stack)
+        before = k7.trunk_forward.launches
+        main(["--stage=predict", "--predictCaffemodel", ckpt, "--decompose",
+              str(folder), "--experiment=d", "--data_root",
+              str(tmp_path / "none"), "--results_root",
+              str(tmp_path / ("res_" + device)), "--device", device] + flags)
+        launched = k7.trunk_forward.launches - before
+        # cuda: one batch of photos and the npz stack twice
+        assert launched == (3 if device == "cuda" else 0)
+        res[device] = (str(folder), str(tmp_path / ("res_" + device) / "d"))
+    for sub in ("decompositions_linear", "decompositions_sRGB"):
+        names = sorted(n for n in os.listdir(os.path.join(res["cpu"][1], sub))
+                       if n.endswith(".png"))
+        assert len(names) == 9
+        for name in names:
+            a = cv2.imread(os.path.join(res["cuda"][1], sub, name))
+            b = cv2.imread(os.path.join(res["cpu"][1], sub, name))
+            assert np.abs(a.astype(int) - b).max() <= 1, (sub, name)
+    with np.load(os.path.join(res["cuda"][0], "s_decomposed.npz")) as g, \
+            np.load(os.path.join(res["cpu"][0], "s_decomposed.npz")) as w:
+        for key in w.files:
+            assert np.abs(g[key].astype(np.float64) - w[key]).max() <= 1e-4
+
+
+def test_k8_measurement_script_runs(dev):
+    """scripts/measure_k8.py on two small cases: both paths bitwise equal
+    (it raises otherwise), every time positive."""
+    from reflectance_filtering_tpu_torch.scripts import measure_k8
+    cases = {"spread": (2, 17, 9, 300, False), "crowded": (2, 40, 30, 900,
+                                                             True)}
+    out = measure_k8.measure(measure_k8.make_inputs(dev, 1, cases))
+    for r in out.values():
+        assert all(ms > 0 for ms in r["wrapper"].values())
+        assert all(r["device"][path]["kernel"] > 0 for path in ("sort",
+                                                                "quadratic"))

@@ -84,10 +84,12 @@ def test_fit_lifecycle(dataset, tmp_path, capsys):
     assert "loss_whdr_hinge" in lines[0] and "val_whdr" in lines[2]
     nets = os.listdir(os.path.join(exp, "networks"))
     assert any(f.endswith(".json") for f in nets)
+    assert [f[:-4] for f in nets if f.endswith(".png")] == [
+        f[:-5] for f in nets if f.endswith(".json")]     # the graph PNG
     assert any(i.startswith("filters_iter_")
                for i in os.listdir(os.path.join(exp, "images")))
     out = capsys.readouterr()
-    assert "ROADMAP module queue item 11" in out.err      # no graph PNG
+    assert "network graph rendering failed" not in out.err
     assert "Validation WHDR at iteration 8" in out.out
 
 
@@ -222,10 +224,8 @@ def test_checkpoint_interval_rounds_to_batch_multiple(dataset, tmp_path):
     (["--stage=predict"], ValueError, "predictCaffemodel"),
     (["--stage=fit", "--iterations=8", "--batch_size=4", "--dataset=sintel"],
      NotImplementedError, "albedo"),
-    (["--stage=fit", "--iterations=8", "--batch_size=4",
-      "--profile_dir=x"], NotImplementedError, "item 5"),
-    (["--stage=predict", "--predictCaffemodel=x.npz", "--decompose=."],
-     NotImplementedError, "item 12")])
+    (["--stage=predict", "--decompose=."], ValueError, "predictCaffemodel"),
+    (["--stage=deploy", "--iterations=8"], ValueError, "not implemented")])
 def test_cli_refuses_loudly(dataset, tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         _run(dataset, str(tmp_path), "bad", *extra)
