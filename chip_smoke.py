@@ -91,6 +91,22 @@ Phases (any failure exits nonzero before the result line):
               2e-4 of its leaf's max; K7 counted on the skip trunk (1
               forward, 1 backward) and the cascade (2 and 2, one backward
               with the input cotangent); then one training step each;
+  4p. multi   the multi-GPU paths (reflectance_filtering_tpu_torch/
+              parallel/) on spawned ranks sharing the one card, the
+              kernels built in this process first: gloo at world size 2
+              (a backend the script names), the flagship's sharded train
+              step at 20 x 256x256 against the single-process step (SGD;
+              params within rtol 1e-5 / atol 1e-7, the hinge within 1e-6,
+              every rank's params equal; K7, K3 and K8 counted on each
+              rank), then the sharded filters on a 2160x3840 photo
+              against the single-device kernels: K2 gray-self and K6
+              color-self and BF(gray, photo) at c20 s22 bitwise, K5 at
+              r=45 eps=3, K4 at r=45 and the 3x chain K9 within the JAX
+              package's sharded gates, each rank's launches printed and
+              the halo exchange and each rank's kernel timed; gloo at
+              world size 4, the 3x chain on 4320x7680 (1,920 columns a
+              rank); NCCL at world size 1, one sharded step and one
+              sharded filter (K2 bitwise);
   5. CLIs     the train CLI's fit stage on cuda with the flagship flags
               (--iterations=40 --batch_size=20 --checkpoint_interval=20) on
               a synthetic 256x256 .npz tree, warm-started from a seeded
@@ -110,8 +126,19 @@ Phases (any failure exits nonzero before the result line):
               photo by itself and guided by another photo, each held
               against the same call on the CPU; and
               joint_bilateral_filter_fast, the float filter's entry point
-              (the width-sharded filter's, not ported yet), called
+              (the JAX package's width-sharded filter's), called
               directly and held against the CPU;
+  5b. build   a synthetic IIW folder (24 photos of 96x128, JSON judgments)
+              through the port's build_dataset CLI (trainValTest, resized
+              to 64x64, augmented, 2 workers; whether PIL is importable
+              printed), then the train CLI's fit for 16 samples on cuda
+              from that dataset (augmented comparisons, K7 counted);
+  5g. grid    the filter CLI's bilateral_grid on cuda against --device cpu
+              (-r.png by itself, guided by the photo, the photo by itself:
+              <= 1 level, its own output name and stderr caveat), and the
+              quality point (ss=8, sr=6) against K2 (p99 <= 1 and max <= 4
+              levels on the JAX grid tests' 6 classes; |dWHDR| <= 0.001 on
+              bench.py's two images and 47,240-comparison blob);
   5d. decompose  the train CLI's --stage=predict --decompose from phase 5's
               flagship snapshot, no dataset on disk, on a folder of seven
               PNGs (256x256, 341x512, 97x131), an npz of 4 x 64x64, an mp4v
@@ -156,6 +183,10 @@ Phases (any failure exits nonzero before the result line):
               batch's 16.6 M pixels beside its bound, and
               decompose_images_batched on 32 PNGs of 768x1024 (wall
               seconds split into decode, device and write) (not gated);
+              the bilateral grid's MP/s at 32 x 256x256 (its default,
+              quality and fast cells; plain torch ops) beside K2's, and
+              phase 4p's halo exchange and per-rank kernel times (two
+              processes sharing one card, not a multi-card figure);
   7. profile  each slice's, the training step's and the 4K chain's device
               busy time and per-kernel device times (torch.profiler), and
               the idle share against phase 6's time in the same run (K8's
@@ -719,6 +750,536 @@ def check_network_families(dev, seed):
         check(np.isfinite(loss) and bn_moved, "4n {}: one training step "
               "(loss {:.6f}{})".format(name, loss, ", running means folded"
                                        if bn else ""))
+
+
+# phase 4p: the data-parallel step and the width-sharded filters on spawned
+# ranks sharing the one card (gloo named by the caller; NCCL at world size 1)
+SHARD_FRAME = (2160, 3840)            # the 4K frame, 1,920 columns a rank
+SHARD_CHAIN_8K = (4320, 7680)         # 1,920 columns a rank at world size 4
+SHARD_BF_HALO = 33                    # the bilateral's halo at c20 s22
+# (rtol, atol) of the JAX package's sharded gates (tests/test_parallel.py);
+# K2 and K6 are held bitwise
+SHARD_GATES = {"K4": (1e-5, 1e-3), "K5": (1e-4, 5e-3), "K9": (1e-4, 0.05)}
+
+
+def _sharded_wrappers():
+    """The launch counters of the kernels the sharded paths run."""
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
+        bilateral_color_self_batched, bilateral_packed_joint_batched)
+    from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
+        bilateral_gray_self)
+    from reflectance_filtering_tpu_torch.ops.box_kernel import (
+        box_filter_planar)
+    from reflectance_filtering_tpu_torch.ops.guided_chain_kernel import (
+        guide_stats, guided_apply_cached)
+    from reflectance_filtering_tpu_torch.ops.guided_kernel import (
+        guided_filter_fused)
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        gather_pairs, scatter_pairs)
+    return {"K2 bilateral_gray_self": bilateral_gray_self,
+            "K3 whdr_gather": gather_pairs,
+            "K4 box_filter": box_filter_planar,
+            "K5 guided_filter": guided_filter_fused,
+            "K6 bilateral_color_self": bilateral_color_self_batched,
+            "K6 bilateral_packed_joint": bilateral_packed_joint_batched,
+            "K7 cnn_train_fwd": k7.trunk_forward,
+            "K7 cnn_train_bwd": k7.trunk_backward,
+            "K8 whdr_scatter": scatter_pairs,
+            "K9 guide_stats": guide_stats,
+            "K9 guided_apply_cached": guided_apply_cached}
+
+
+def _count_launches(run):
+    """(run()'s result, the launches each counted kernel made in it)."""
+    wrappers = _sharded_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in wrappers.items()
+                 if fn.launches}
+
+
+def _rank_train_step(mesh, seed, n_images, hw):
+    """One data-parallel step of the flagship trunk on this rank's rows of
+    a seeded batch (K7, K3, K8), and on rank 0 the single-process step on
+    the whole batch from the same params (SGD: the params differ by the
+    learning rate times the gradients' difference)."""
+    import torch.distributed as dist
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.parallel.mesh import (
+        make_sharded_train_step, shard_batch)
+    from reflectance_filtering_tpu_torch.train.loop import (
+        LossConfig, make_optimizer, make_train_step, param_leaves,
+        trainable)
+    cfg = NetworkConfig()                 # the flagship: 5 x 32, rDirectly
+    data = training_set(seed, n_images, K, hw, hw)
+    init = init_network(cfg, torch.Generator().manual_seed(seed))
+    params = trainable(init, mesh.device)
+    step = make_sharded_train_step(cfg, LossConfig(), params,
+                                   make_optimizer("SGD", 1e-3, params), mesh)
+    metrics, launches = _count_launches(lambda: step(
+        shard_batch(data["images"], mesh),
+        shard_batch(data["comparisons"], mesh)))
+    res = {"backend": dist.get_backend(mesh.group), "launches": launches,
+           "hinge": float(metrics["loss_whdr_hinge"]),
+           "params": [p.detach().cpu().numpy() for p in param_leaves(params)]}
+    if mesh.rank == 0:
+        single = trainable(init, mesh.device)
+        m1 = make_train_step(cfg, LossConfig(), single, make_optimizer(
+            "SGD", 1e-3, single))(
+                torch.from_numpy(data["images"]).to(mesh.device),
+                torch.from_numpy(data["comparisons"]).to(mesh.device))
+        res["single_hinge"] = float(m1["loss_whdr_hinge"])
+        res["single_params"] = [p.detach().cpu().numpy()
+                                for p in param_leaves(single)]
+    return res
+
+
+def _rank_filters(mesh, seed):
+    """The width-sharded filters on a 4K photo (uint8 levels, c20 s22 for
+    the bilateral, r=45 eps=3 for the guided filter, the 3x chain and the
+    box) against the single-device kernels on rank 0; then the halo
+    exchange's and this rank's kernel's times."""
+    from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
+        bilateral_color_self_batched, bilateral_packed_joint_batched)
+    from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
+        bilateral_gray_self)
+    from reflectance_filtering_tpu_torch.ops.box_kernel import (
+        box_filter_planar)
+    from reflectance_filtering_tpu_torch.ops.guided import (
+        guided_filter_iterated, guided_filter_planar)
+    from reflectance_filtering_tpu_torch.parallel import spatial as ps
+    dev = mesh.device
+    h, w = SHARD_FRAME
+    photo = device_photos(torch.Generator(dev).manual_seed(seed), 1, h, w)
+    u8 = photo[0].permute(1, 2, 0).to(torch.uint8).contiguous()  # [H, W, 3]
+    gray = u8[..., 0].contiguous()
+    f = u8.to(torch.float32)
+    runs = {
+        "K2 gray-self c20 s22": lambda: ps.sharded_bilateral_gray_self(
+            gray, mesh, -1, SIGMA_C, SIGMA_S, reps=3),
+        "K6 color-self c20 s22": lambda: ps.sharded_bilateral_color_self(
+            u8, mesh, -1, SIGMA_C, SIGMA_S),
+        "K6 BF(gray, photo) c20 s22": lambda: ps.sharded_joint_bilateral(
+            u8, gray[..., None], mesh, -1, SIGMA_C, SIGMA_S),
+        "K5 guided r45 eps3": lambda: ps.sharded_guided_filter(
+            f, f[..., 0], GF_R, GF_EPS, mesh),
+        "K9 3x chain r45": lambda: ps.sharded_guided_filter_iterated(
+            f, f[..., 0], GF_R, GF_EPS, CHAIN_ITERS, mesh),
+        "K4 box r45": lambda: ps.sharded_box_filter(f, GF_R, mesh),
+    }
+    got, launches = {}, {}
+    for name, run in runs.items():
+        got[name], launches[name] = _count_launches(run)
+    res = {"launches": launches, "errors": {}}
+    if mesh.rank == 0:
+        planes = f.permute(2, 0, 1)[None].contiguous()
+        exp = {
+            "K2 gray-self c20 s22": bilateral_gray_self(
+                gray[None], -1, SIGMA_C, SIGMA_S, reps=3)[0],
+            "K6 color-self c20 s22": bilateral_color_self_batched(
+                planes, -1, SIGMA_C, SIGMA_S)[0].permute(1, 2, 0),
+            "K6 BF(gray, photo) c20 s22": bilateral_packed_joint_batched(
+                planes, planes[:, :1].contiguous(), -1, SIGMA_C,
+                SIGMA_S)[0].permute(1, 2, 0),
+            "K5 guided r45 eps3": guided_filter_planar(
+                planes, planes[:, :1], GF_R, GF_EPS)[0, 0],
+            "K9 3x chain r45": guided_filter_iterated(
+                planes, planes[:, :1], GF_R, GF_EPS, CHAIN_ITERS,
+                planar=True)[0, 0],
+            "K4 box r45": box_filter_planar(
+                planes[0], GF_R, "reflect101").permute(1, 2, 0),
+        }
+        for name, e in exp.items():
+            g = got[name]
+            tol = SHARD_GATES.get(name[:2])
+            lv = (torch.round(g.clamp(0, 255)) - torch.round(e.clamp(0, 255))
+                  ).abs()
+            res["errors"][name] = {
+                "bitwise": bool(torch.equal(g, e)),
+                "max_abs": float((g - e).abs().max()),
+                "rel_ok": tol is None or bool(torch.allclose(g, e, *tol)),
+                "levels": float(lv.max()),
+                "levels_share": float((lv > 0).float().mean())}
+    # times: the exchange of this rank's columns (host clock around the
+    # collective and a synchronize), and K2 / K9 on its haloed block (CUDA
+    # events); both ranks share the card and run the same loop
+    ws = w // mesh.size
+    local = gray[:, mesh.rank * ws:(mesh.rank + 1) * ws][..., None]
+    localc = f[:, mesh.rank * ws:(mesh.rank + 1) * ws].contiguous()
+    times = {}
+    for name, blk, halo, kernel in (
+            ("K2 gray-self, halo 33", local, SHARD_BF_HALO,
+             lambda b: bilateral_gray_self(b[..., 0][None].contiguous(), -1,
+                                           SIGMA_C, SIGMA_S, reps=3)),
+            ("K9 3x chain, halo 270", localc, 2 * GF_R * CHAIN_ITERS,
+             lambda b: guided_filter_iterated(
+                 b.permute(2, 0, 1)[None].contiguous(),
+                 b[..., :1].permute(2, 0, 1)[None].contiguous(), GF_R,
+                 GF_EPS, CHAIN_ITERS, planar=True))):
+        border = "reflect101" if halo == SHARD_BF_HALO else "reflect"
+        ex = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            haloed = ps.exchange_halos_w(blk, halo, mesh, border)
+            torch.cuda.synchronize()
+            if i:
+                ex.append((time.perf_counter() - t0) * 1e3)
+        times[name] = {"exchange_ms": statistics.median(ex),
+                       "kernel_ms": time_ms(lambda: kernel(haloed), 5),
+                       "block": list(haloed.shape)}
+    res["times"] = times
+    return res
+
+
+def _rank_chain_8k(mesh, seed):
+    """The 3x chain at r=45 on a 4320x7680 frame (1,920 columns a rank at
+    world size 4, above its 270-column halo) against K9 on rank 0."""
+    from reflectance_filtering_tpu_torch.ops.guided import (
+        guided_filter_iterated)
+    from reflectance_filtering_tpu_torch.parallel import spatial as ps
+    dev = mesh.device
+    h, w = SHARD_CHAIN_8K
+    planes = device_photos(torch.Generator(dev).manual_seed(seed), 1, h, w)
+    f = planes[0].permute(1, 2, 0).contiguous()
+    got, launches = _count_launches(lambda: ps.sharded_guided_filter_iterated(
+        f, f[..., 0], GF_R, GF_EPS, CHAIN_ITERS, mesh))
+    res = {"launches": launches}
+    if mesh.rank == 0:
+        exp = guided_filter_iterated(planes, planes[:, :1].contiguous(), GF_R,
+                                     GF_EPS, CHAIN_ITERS, planar=True)[0, 0]
+        lv = (torch.round(got) - torch.round(exp)).abs()
+        res["error"] = {"max_abs": float((got - exp).abs().max()),
+                        "rel_ok": bool(torch.allclose(got, exp, 1e-4, 0.05)),
+                        "levels": float(lv.max()),
+                        "levels_share": float((lv > 0).float().mean())}
+    return res
+
+
+def _rank_nccl(mesh, seed):
+    """World size 1 over NCCL: one sharded train step and one sharded
+    filter (K2 on a 512x768 frame against the kernel, bitwise)."""
+    from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
+        bilateral_gray_self)
+    from reflectance_filtering_tpu_torch.parallel import spatial as ps
+    res = _rank_train_step(mesh, seed, 4, 64)
+    gray = torch.from_numpy(photos(np.random.RandomState(seed), 1, 512,
+                                   768)[0, 0]).to(mesh.device)
+    got = ps.sharded_bilateral_gray_self(gray, mesh, -1, SIGMA_C, SIGMA_S,
+                                         reps=3)
+    res["filter_bitwise"] = bool(torch.equal(got, bilateral_gray_self(
+        gray[None], -1, SIGMA_C, SIGMA_S, reps=3)[0]))
+    return res
+
+
+def _check_train_ranks(label, results):
+    r0 = results[0]
+    same = all(np.array_equal(a, b) for r in results[1:]
+               for a, b in zip(r["params"], r0["params"]))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(
+        r0["params"], r0["single_params"]))
+    close = all(np.allclose(a, b, rtol=1e-5, atol=1e-7) for a, b in zip(
+        r0["params"], r0["single_params"]))
+    dh = abs(r0["hinge"] - r0["single_hinge"])
+    for r in results:
+        print("  {} rank launches: {}".format(label, r["launches"]))
+    print("  {}: params max|d| {:.3e} against the single-process step, "
+          "hinge |d| {:.3e}, backend {}".format(label, err, dh,
+                                                r0["backend"]))
+    check(same, "{}: every rank holds the same params".format(label))
+    check(close and dh <= 1e-6 * max(1.0, abs(r0["single_hinge"])),
+          "{}: params within rtol 1e-5 / atol 1e-7 and the hinge within "
+          "1e-6 of the single-process step".format(label))
+    for r in results:
+        check(all(r["launches"].get(k, 0) > 0 for k in (
+            "K7 cnn_train_fwd", "K7 cnn_train_bwd", "K3 whdr_gather",
+            "K8 whdr_scatter")), "{}: K7, K3 and K8 launched on every "
+              "rank".format(label))
+
+
+def check_multi_gpu(dev, seed):
+    """Phase 4p; returns world size 2's per-rank times for phase 6."""
+    from reflectance_filtering_tpu_torch.parallel import dryrun
+    card = "cuda:{}".format(dev.index)
+    t0 = time.perf_counter()
+    train2 = dryrun.spawn(2, _rank_train_step, seed, TB, H, backend="gloo",
+                          device=card)
+    _check_train_ranks("world size 2 (gloo), {} x {}x{}".format(TB, H, W),
+                       train2)
+    filt2 = dryrun.spawn(2, _rank_filters, seed, backend="gloo", device=card)
+    for name, e in filt2[0]["errors"].items():
+        print("  {}: {}".format(name, e))
+        if name[:2] in ("K2", "K6"):
+            check(e["bitwise"], "{} sharded over 2 ranks is bitwise the "
+                  "single-device kernel's".format(name))
+        elif name[:2] == "K9":
+            check(e["rel_ok"] and e["levels"] <= 1
+                  and e["levels_share"] < 1e-4,
+                  "{} sharded: rtol 1e-4 / atol 0.05, <= 1 level on < 1e-4 "
+                  "of the pixels".format(name))
+        else:
+            check(e["rel_ok"], "{} sharded within the JAX package's "
+                  "gate".format(name))
+    for rank, r in enumerate(filt2):
+        print("  rank {} launches by filter: {}".format(rank, r["launches"]))
+        counted = {k: n for run in r["launches"].values()
+                   for k, n in run.items()}
+        check(all(counted.get(k, 0) > 0 for k in (
+            "K2 bilateral_gray_self", "K6 bilateral_color_self",
+            "K6 bilateral_packed_joint", "K5 guided_filter",
+            "K9 guide_stats", "K9 guided_apply_cached", "K4 box_filter")),
+            "rank {}: K2, K4, K5, K6 and K9 launched".format(rank))
+    chain4 = dryrun.spawn(4, _rank_chain_8k, seed, backend="gloo",
+                          device=card)
+    e = chain4[0]["error"]
+    print("  8K 3x chain over 4 ranks: {}; launches by rank {}".format(
+        e, [r["launches"] for r in chain4]))
+    check(e["rel_ok"] and e["levels"] <= 1 and e["levels_share"] < 1e-4
+          and all(r["launches"].get("K9 guide_stats", 0) > 0
+                  for r in chain4),
+          "the 4320x7680 chain over 4 ranks (1,920 columns each): K9 on "
+          "every rank, within the chain's gate")
+    nccl = dryrun.spawn(1, _rank_nccl, seed, backend="nccl", device=card)
+    _check_train_ranks("world size 1 (NCCL), 4 x 64x64", nccl)
+    check(nccl[0]["backend"] == "nccl" and nccl[0]["filter_bitwise"],
+          "the NCCL group initialises and runs a sharded step and a sharded "
+          "filter (K2 bitwise)")
+    print("phase 4p: {:.1f} s".format(time.perf_counter() - t0))
+    return [r["times"] for r in filt2]
+
+
+# phase 5b: a synthetic IIW folder through the port's dataset builder, then
+# the train CLI from that dataset
+IIW_N, IIW_HW, BUILT_HW = 24, (96, 128), 64
+
+
+def write_iiw_folder(folder, seed):
+    """IIW_N seeded photos as <id>.png with <id>.json judgments (6 points,
+    12 comparisons each, as the IIW dataset lays them out)."""
+    rng = np.random.RandomState(seed)
+    imgs = photos(rng, IIW_N, *IIW_HW)
+    for i in range(IIW_N):
+        fid = str(100000 + i)
+        cv2_write(os.path.join(folder, fid + ".png"),
+                  np.ascontiguousarray(np.moveaxis(imgs[i], 0, -1)))
+        points = [{"id": p_, "x": float(rng.rand()), "y": float(rng.rand()),
+                   "opaque": True} for p_ in range(6)]
+        comps = []
+        for _ in range(12):
+            a, b = rng.choice(6, 2, replace=False)
+            comps.append({"point1": int(a), "point2": int(b),
+                          "darker": str(rng.choice(["1", "2", "E"])),
+                          "darker_score": float(rng.rand())})
+        with open(os.path.join(folder, fid + ".json"), "w") as f:
+            json.dump({"intrinsic_points": points,
+                       "intrinsic_comparisons": comps}, f)
+
+
+def cv2_write(path, bgr):
+    import cv2
+    if not cv2.imwrite(path, bgr):
+        raise IOError("could not write " + path)
+
+
+def check_builder(seed):
+    """Phase 5b."""
+    from reflectance_filtering_tpu_torch.cli import build_dataset as build_cli
+    from reflectance_filtering_tpu_torch.cli import train as train_cli
+    from reflectance_filtering_tpu_torch.data.builder import (
+        MAX_NUM_AUGMENTED, narihira_split_three)
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    try:
+        import PIL
+        print("PIL importable: {} (the builder's resize)".format(
+            PIL.__version__))
+    except ImportError as e:
+        print("PIL importable: no ({})".format(e))
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        write_iiw_folder(raw, seed)
+        root = os.path.join(tmp, "lmdbs")
+        t0 = time.perf_counter()
+        build_cli.main(["--data_folder", raw, "--save_to",
+                        os.path.join(root, "iiw"), "--mode", "trainValTest",
+                        "--height", str(BUILT_HW), "--width", str(BUILT_HW),
+                        "--augment", "1", "--workers", "2",
+                        "--seed", str(seed)])
+        print("build_dataset CLI: {} photos of {}x{} -> {}x{}, augmented, 2 "
+              "workers: {:.2f} s".format(IIW_N, *IIW_HW, BUILT_HW, BUILT_HW,
+                                         time.perf_counter() - t0))
+        sizes = [len(s_) for s_ in narihira_split_three(
+            [str(100000 + i) for i in range(IIW_N)])]
+        for split, n in zip(("train", "val", "test"), sizes):
+            for variant in ("sRGB", "linear"):
+                path = os.path.join(root, "iiw", "trainValTest_{}_{}_{}_{}"
+                                    ".npz".format(split, BUILT_HW, BUILT_HW,
+                                                  variant))
+                with np.load(path) as z:
+                    ok = (z["images"].shape == (n, 3, BUILT_HW, BUILT_HW)
+                          and z["augmented"].shape == (
+                              n, MAX_NUM_AUGMENTED + 1, 1, 6)
+                          and np.isfinite(z["augmented"][:, :, 0, 4]).sum()
+                          > 0 and z["images"].min() >= 1e-5)
+                check(ok, "{}: {} images, the augmented blob".format(
+                    os.path.basename(path), n))
+        res = os.path.join(tmp, "results")
+        for fn in (k7.trunk_forward, k7.trunk_backward):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train_cli.main(["--stage=fit"] + TRAIN_FLAGS + [
+            "--iterations=16", "--batch_size=4", "--checkpoint_interval=8",
+            "--height={}".format(BUILT_HW), "--width={}".format(BUILT_HW),
+            "--random_seed=0", "--data_root", root, "--results_root", res,
+            "--experiment=built", "--comparisonsType=augmented",
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        exp = os.path.join(res, "built")
+        snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
+        progs = os.listdir(os.path.join(exp, "progressions"))
+        with open(os.path.join(exp, "progressions", progs[0])) as f:
+            prog = json.load(f)["test"]
+        print("train CLI from the built dataset on cuda: {:.2f} s, val WHDR "
+              "{}, K7 launches forward {} backward {}".format(
+                  time.perf_counter() - t0, [e["WHDR"] for e in prog],
+                  k7.trunk_forward.launches, k7.trunk_backward.launches))
+        check([s_.rsplit("_", 1)[1] for s_ in snaps] == ["16.npz", "8.npz"]
+              and all(np.isfinite(e["WHDR"]) for e in prog)
+              and k7.trunk_forward.launches > 0
+              and k7.trunk_backward.launches > 0,
+              "the train CLI fits on cuda from the port's own dataset "
+              "(augmented comparisons): snapshots _iter_8 and _iter_16, "
+              "finite val WHDR, K7 launched")
+
+
+# the bilateral grid (an approximate CLI mode, plain torch ops): its cells
+# at the JAX bench's shapes (bench.py:488-529): (label, ss, sr)
+GRID_CELLS = [("defaults", None, None), ("quality ss=8 sr=6", 8, 6),
+              ("fast ss=16 sr=10", 16, 10)]
+
+
+def grid_quality_set(rng, h=256, w=256):
+    """The JAX grid tests' 6-class quality set (tests/test_bilateral_grid.py:
+    hard edge, noise, binary, low contrast, wedges, 1/f noise)."""
+    from reflectance_filtering_tpu_torch.utils.testimages import pink_noise
+    yy, xx = np.mgrid[0:h, 0:w]
+    study = np.clip(120 + 80 * np.sin(xx / 60.0) * np.cos(yy / 45.0)
+                    + 30 * np.sin((xx + yy) / 15.0) + 20 * rng.rand(h, w),
+                    0, 255)
+    study[60:120, 60:120] = 220
+    return np.floor(np.stack([
+        study, rng.rand(h, w) * 255, (rng.rand(h, w) > 0.5) * 255.0,
+        np.clip(128 + 25 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+                + 8 * rng.rand(h, w), 0, 255),
+        (np.floor(xx / 32) * 36.0) % 256, pink_noise(rng, h, w)])).astype(
+            np.float32)
+
+
+def check_grid(dev, seed):
+    """Phase 5g: the filter CLI's bilateral_grid on cuda against --device
+    cpu, and the quality point against K2 (the exact filter)."""
+    import cv2
+    from reflectance_filtering_tpu_torch.cli import filter as filt_cli
+    from reflectance_filtering_tpu_torch.losses.whdr import whdr
+    from reflectance_filtering_tpu_torch.ops.bilateral_grid import (
+        bilateral_grid_gray, bilateral_grid_u8)
+    from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
+        bilateral_gray_self)
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps, pink_noise)
+    rng = np.random.RandomState(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        photo = np.ascontiguousarray(np.moveaxis(photos(rng, 1, H, W)[0], 0,
+                                                 -1))
+        png = os.path.join(tmp, "grid.png")
+        cv2.imwrite(png, np.repeat(photo[..., :1], 3, -1))
+        cpng = os.path.join(tmp, "photo.png")
+        cv2.imwrite(cpng, photo)
+        for inp, guide in ((png, png), (png, cpng), (cpng, cpng)):
+            outs = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, device)
+                os.makedirs(out, exist_ok=True)
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    outs[device] = filt_cli.read_filter_write(
+                        "bilateral_grid", inp, guide, SIGMA_C, SIGMA_S, out,
+                        device=device)
+                check("APPROXIMATE" in err.getvalue() and os.path.isfile(
+                    os.path.join(out, os.path.splitext(os.path.basename(
+                        inp))[0] + "_bilateral_grid_c20.0s22.0.png")),
+                    "grid CLI on {}: its own output name and its stderr "
+                    "caveat".format(device))
+            d = np.abs(outs["cuda"].astype(np.int32) - outs["cpu"]).max()
+            check(d <= 1, "grid CLI ({} guided by {}) on cuda within 1 level "
+                  "of --device cpu ({})".format(os.path.basename(inp),
+                                                os.path.basename(guide), d))
+    # the quality point (ss=8, sr=6) against K2 on each class: p99 <= 1,
+    # max <= 4 levels
+    imgs = torch.from_numpy(grid_quality_set(rng)).to(dev)
+    approx = torch.clamp(torch.round(bilateral_grid_gray(
+        imgs, imgs[:, None], SIGMA_C / 3, SIGMA_S, ss=8, sr=6)[:, 0]), 0, 255)
+    exact = torch.clamp(torch.round(bilateral_gray_self(
+        imgs.to(torch.uint8), -1, SIGMA_C, SIGMA_S, reps=3)), 0, 255)
+    d = (approx - exact).abs().reshape(len(imgs), -1)
+    p99 = torch.quantile(d, 0.99, dim=1)
+    print("grid quality point against K2, per class: p99 {} max {}".format(
+        p99.tolist(), d.max(dim=1).values.tolist()))
+    check(bool((p99 <= 1).all() and (d.max() <= 4)),
+          "grid at ss=8, sr=6 against K2: p99 <= 1 and max <= 4 levels on "
+          "each of the 6 classes")
+    # |dWHDR| <= 0.001 against K2 on bench.py's two images and blob
+    rngg = np.random.RandomState(7)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
+    gray = np.clip(120 + 70 * np.sin(xx / 14.0) * np.cos(yy / 10.0)
+                   + 12 * rngg.rand(96, 128), 0, 255).astype(np.uint8)
+    pink = pink_noise(rngg, 96, 128).astype(np.uint8)
+    comps = torch.from_numpy(make_synthetic_comps(11, 40 * K)).to(dev)
+    for name, img in (("smooth", gray), ("pink", pink)):
+        rep3 = np.repeat(img[..., None], 3, -1)
+        got = bilateral_grid_u8(rep3, rep3, SIGMA_C, SIGMA_S, ss=8, sr=6,
+                                device=dev)
+        exp = torch.clamp(torch.round(bilateral_gray_self(
+            torch.from_numpy(img).to(dev)[None], -1, SIGMA_C, SIGMA_S,
+            reps=3)[0]), 0, 255)
+        dw = abs(float(whdr(torch.from_numpy(got[..., :1]).to(dev).float()
+                            / 255.0, comps))
+                 - float(whdr(exp[..., None] / 255.0, comps)))
+        check(dw <= 1e-3, "grid ({}) at ss=8, sr=6: |dWHDR| {:.2e} <= 0.001 "
+              "against K2".format(name, dw))
+
+
+def time_grid(dev, seed, k2_ms, shard_times):
+    """Phase 6: the grid's MP/s at the JAX bench's 32 x 256x256 beside
+    K2's, and phase 4p's exchange and kernel times."""
+    from reflectance_filtering_tpu_torch.ops.bilateral_grid import (
+        bilateral_grid_gray)
+    rng = np.random.RandomState(seed + 5)
+    gj = torch.from_numpy(np.floor(rng.rand(B, H, W) * 256).astype(
+        np.float32)).to(dev)
+    gs = torch.from_numpy(np.floor(rng.rand(B, 1, H, W) * 256).astype(
+        np.float32)).to(dev)
+    mp = B * H * W / 1e6
+    print("K2 (uint8 levels) at {} x {}x{}: {:.4f} ms, {:.1f} MP/s".format(
+        B, H, W, k2_ms, mp / (k2_ms / 1e3)))
+    with torch.no_grad():
+        for label, ss, sr in GRID_CELLS:
+            ms = time_ms(lambda: bilateral_grid_gray(gj, gs, SIGMA_C / 3,
+                                                     SIGMA_S, ss, sr), 10)
+            print("bilateral grid, {}, at {} x {}x{}: {:.4f} ms, {:.1f} MP/s "
+                  "(plain torch ops; {:.2f}x K2's time)".format(
+                      label, B, H, W, ms, mp / (ms / 1e3), ms / k2_ms))
+    for rank, times in enumerate(shard_times):
+        for name, t in times.items():
+            print("sharded 4K, world size 2 (two processes sharing one "
+                  "card), rank {}, {}: halo exchange {:.3f} ms (host clock, "
+                  "gloo), kernel on the haloed block {} {:.4f} ms (CUDA "
+                  "events)".format(rank, name, t["exchange_ms"], t["block"],
+                                   t["kernel_ms"]))
 
 
 def main():
@@ -1555,6 +2116,10 @@ def main():
           "kernels on and off".format(NET_B, NET_HW, NET_HW))
     check_network_families(dev, args.seed)
 
+    phase("4p. multi-GPU paths on the one card: spawned ranks over gloo "
+          "(world sizes 2 and 4) and NCCL (world size 1)")
+    shard_times = check_multi_gpu(dev, args.seed)
+
     phase("5. the train CLI's fit stage on cuda and on the CPU")
     ckpt_dir = tempfile.TemporaryDirectory()    # removed at the end of phase 6
     flagship_ckpt = None
@@ -1633,6 +2198,10 @@ def main():
             check(dw <= 1e-3 and dp <= 1e-3, "train CLI, {}, on cuda against "
                   "the CPU: final val WHDR within 0.001, params within "
                   "1e-3".format(run))
+
+    phase("5b. the port's dataset builder, then the train CLI from its "
+          "dataset on cuda")
+    check_builder(args.seed)
 
     phase("5. CLIs on cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1747,8 +2316,8 @@ def main():
                   "1 level of the same call on the CPU (max {})".format(case,
                                                                         d))
 
-        # the float filter's entry point (the width-sharded filter calls
-        # it in the JAX package), called directly: photo joint, gray src
+        # the float filter's entry point (the JAX package's width-sharded
+        # filter calls it), called directly: photo joint, gray src
         reset_launches()
         r_gray = cv2.imread(r_png)[..., 0].astype(np.float32)
         fast = joint_bilateral_filter_fast(
@@ -1763,6 +2332,10 @@ def main():
         check(fast.shape == (H, W) and err <= 1e-3,
               "joint_bilateral_filter_fast on cuda within 1e-3 of the CPU "
               "(max {:.2e})".format(err))
+
+    phase("5g. the bilateral grid: the filter CLI on cuda against the CPU, "
+          "the quality point against K2")
+    check_grid(dev, args.seed)
 
     phase("5d. the train CLI's --decompose from phase 5's flagship snapshot, "
           "on cuda and on the CPU")
@@ -2111,6 +2684,10 @@ def main():
     print("K7 backward in the times above: {:.4f} ms; in the split's turns: "
           "{:.4f} ms".format(times["cnn_train_bwd"][0],
                              split_run["product_ms"]))
+
+    phase("6. the bilateral grid's MP/s beside K2's; the sharded 4K "
+          "filters' exchange and kernel times")
+    time_grid(dev, args.seed, times["bilateral_gray_self"][0], shard_times)
 
     phase("7. profile: device time per batch (torch.profiler, {} "
           "batches each)".format(PROFILE_BATCHES))

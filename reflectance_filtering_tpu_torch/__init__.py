@@ -7,10 +7,14 @@ CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a`` at first use) for
 what the JAX package wrote in Pallas.  It never imports ``jax`` or
 ``reflectance_filtering_tpu``.
 
-Ported so far: the BF(CNN,CNN) serving path — uint8 photo -> reflectance
-CNN -> ``floor(r*255)`` -> self-guided gray bilateral (sigma_c=20,
-sigma_s=22) -> ``rint``/clip -> WHDR — with its CLIs
-(``cli/decompose.py``, ``cli/filter.py``) and ``utils/serving.py``.
+Ported so far: every TPU kernel (K1-K9 in ``csrc/``) and the paths over
+them — the BF(CNN,CNN) and GF(CNN, image) serving pipelines
+(``utils/serving.py``), the decompose and filter CLIs (the approximate
+bilateral grid among the filter types), the iterated guided chain,
+training (``train/``, ``cli/train.py`` with ``--decompose``), the dataset
+builder (``data/builder.py``, ``cli/build_dataset.py``) and multi-GPU
+data and spatial parallelism (``parallel/``).  Not yet: the serving
+export (``torch.export`` artifacts).
 
 Every kernel wrapper dispatches on the device of the tensor it is given:
 a CPU tensor runs the plain PyTorch version, a CUDA tensor launches the

@@ -6,16 +6,17 @@ Same flags (--filename_in --guidance_in --path_out --sigma_color
 --device, the same parameter semantics (bilateral: d=-1/sigmaColor/
 sigmaSpace; guided: radius=int(sigma_spatial), eps=sigma_color), the same
 output naming ``{base}_{type}_c{sc}s{ss}.png`` (``_guided_sub{n}_...`` for
-the ``--subsample`` fast mode) and the same no-args help with suggested
-parameter combinations.  Filtering happens in uint8 0-255 space, as in the
-reference.
+the ``--subsample`` fast mode, ``_bilateral_grid_...`` for the grid) and
+the same no-args help with suggested parameter combinations.  Filtering
+happens in uint8 0-255 space, as in the reference.
 
-Ported so far: ``bilateral``, for every pairing of input and guidance
-(the -r.png by itself, a color photo by itself as cv2.bilateralFilter, the
+Filter types: ``bilateral``, for every pairing of input and guidance (the
+-r.png by itself, a color photo by itself as cv2.bilateralFilter, the
 -r.png guided by the photo, gray or color either way), each on a CUDA
-kernel (K2 or K6) on ``--device cuda``; and ``guided`` (exact, and
-``--subsample N``, the Fast Guided Filter).  ``bilateral_grid`` raises
-NotImplementedError naming its ROADMAP item.
+kernel (K2 or K6) on ``--device cuda``; ``guided`` (exact, and
+``--subsample N``, the Fast Guided Filter); and ``bilateral_grid``, the
+approximate grid bilateral (``--grid_ss``, ``--grid_sr``; plain torch ops
+on the device), which prints its caveat to stderr.
 
   python -m reflectance_filtering_tpu_torch.cli.filter \\
       --filter_type=bilateral --sigma_color=20 --sigma_spatial=22 \\
@@ -34,6 +35,12 @@ from ..ops.guided import fast_guided_filter_u8, guided_filter_u8
 from ..utils import image as iu
 from . import add_device_flag, resolve_device
 
+_GRID_CAVEAT = (
+    "bilateral_grid is an APPROXIMATE speed mode (bilateral-grid splat/"
+    "blur/slice): ~0.4 uint8 levels mean / ~2 levels p99 vs the exact "
+    "filter at the default cells; use --filter_type=bilateral for the "
+    "reference-parity output.")
+
 _SUBSAMPLE_CAVEAT = (
     "--subsample>1 runs the Fast Guided Filter (He & Sun 2015) — an "
     "APPROXIMATE speed mode, typically <1 uint8 level mean error at "
@@ -44,9 +51,12 @@ def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
                  subsample: int = 1, grid_ss=None, grid_sr=None,
                  device="cuda"):
     """Apply the joint-bilateral or guided filter on ``device`` (the card
-    unless the caller asks for the CPU); subsample > 1 with
-    filter_type='guided' runs the Fast Guided Filter.  The bilateral grid
-    is not ported yet."""
+    unless the caller asks for the CPU).
+
+    Beyond the reference surface (opt-in speed modes):
+    filter_type='bilateral_grid' runs the approximate grid bilateral
+    (ops/bilateral_grid.py; grid_ss/grid_sr tune the cells), and
+    subsample > 1 with filter_type='guided' runs the Fast Guided Filter."""
     device = target_device(device)
     if (sigma_color is None or sigma_spatial is None
             or sigma_color <= 0 or sigma_spatial <= 0):
@@ -57,9 +67,11 @@ def apply_filter(filter_type, image, joint, sigma_color, sigma_spatial,
                                          sigma_space=sigma_spatial,
                                          device=device)
     elif filter_type == "bilateral_grid":
-        raise NotImplementedError(
-            "filter_type 'bilateral_grid' is not ported yet (ROADMAP module "
-            "queue item 9)")
+        from ..ops.bilateral_grid import bilateral_grid_u8
+        print(_GRID_CAVEAT, file=sys.stderr)
+        return bilateral_grid_u8(joint, image, sigma_color=sigma_color,
+                                 sigma_space=sigma_spatial, ss=grid_ss,
+                                 sr=grid_sr, device=device)
     elif filter_type == "guided":
         if subsample and subsample > 1:
             print(_SUBSAMPLE_CAVEAT, file=sys.stderr)
@@ -78,8 +90,10 @@ def read_filter_write(filter_type, filename_in, guidance_in,
                       subsample: int = 1, grid_ss=None, grid_sr=None,
                       device="cuda"):
     """Read input + guidance, filter on ``device`` (the card unless the
-    caller asks for the CPU), write with the reference's naming (the
-    --subsample fast mode gets its own, ``_guided_sub{n}_...``)."""
+    caller asks for the CPU), write with the reference's naming; the opt-in
+    speed modes get distinct names (``_bilateral_grid_...``,
+    ``_guided_sub{n}_...``) so they can never be mistaken for (or
+    overwrite) a parity output."""
     device = target_device(device)
     basename = os.path.splitext(os.path.basename(filename_in))[0]
     image = iu.imread(filename_in)
@@ -122,7 +136,9 @@ def main(argv=None):
                                 the guided filter (guided) or
                                 the joint bilateral filter (bilateral;
                                 any gray or color input and guidance).
-                                bilateral_grid is not ported yet.""")
+                                bilateral_grid selects the approximate
+                                grid bilateral (opt-in fast mode, a few
+                                uint8 levels of error).""")
     parser.add_argument("--subsample", type=int, default=1,
                         help="""guided only: >1 runs the Fast Guided
                                 Filter (He & Sun 2015) with coefficients
@@ -130,10 +146,11 @@ def main(argv=None):
                                 opt-in approximate fast mode.""")
     parser.add_argument("--grid_ss", type=int, default=None,
                         help="""bilateral_grid only: spatial cell size in
-                                pixels (not ported yet).""")
+                                pixels (default ~sigma_spatial/3).""")
     parser.add_argument("--grid_sr", type=int, default=None,
                         help="""bilateral_grid only: range cell size in
-                                intensity levels (not ported yet).""")
+                                intensity levels (default
+                                ~1.2*sigma_color).""")
     add_device_flag(parser)
     args = parser.parse_args(argv)
     effective_argv = argv if argv is not None else sys.argv[1:]

@@ -28,7 +28,7 @@ with ``torch.maximum``, which splits the gradient evenly at a tie as
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,13 +169,16 @@ def _hinge_per_comparison(y: torch.Tensor, darker: torch.Tensor,
 def _eval_selection_mask(valid: torch.Tensor, num: torch.Tensor,
                          ratio: float, eval_dense: bool,
                          generator: Optional[torch.Generator],
-                         k: int) -> torch.Tensor:
+                         k: int, draw_rows: Optional[Tuple[int, int]] = None
+                         ) -> torch.Tensor:
     """Which comparisons get evaluated (whdr_hinge_loss_layer.py:136-148):
     a prefix of num_eval rows (dense-skip, then the ratio), and above
     MAX_EVALUATED_COMPARISONS a uniform choice of that many without
     replacement, drawn from ``generator`` (torch's numbers, not
     ``jax.random``'s; training selects on the host instead,
-    :func:`select_comparisons_host`)."""
+    :func:`select_comparisons_host`).  ``draw_rows=(offset, total)``: the
+    rows are rows offset.. of a batch of ``total``, whose draw is made
+    whole and sliced (a data-parallel rank draws the global batch's)."""
     num_eval = num
     if not eval_dense:
         num_eval = torch.where(num > DENSE_SKIP_THRESHOLD,
@@ -190,8 +193,13 @@ def _eval_selection_mask(valid: torch.Tensor, num: torch.Tensor,
                 "select them on the host (select_comparisons_host) or pass a "
                 "generator for the capped draw".format(
                     k, MAX_EVALUATED_COMPARISONS))
-        r = torch.rand(tuple(num_eval.shape) + (k,), generator=generator,
-                       device=num.device)
+        if draw_rows is None:
+            r = torch.rand(tuple(num_eval.shape) + (k,), generator=generator,
+                           device=num.device)
+        else:
+            offset, total = draw_rows
+            r = torch.rand((total, k), generator=generator,
+                           device=num.device)[offset:offset + len(num_eval)]
         r = torch.where(mask, r, torch.full_like(r, 2.0))  # unselected last
         rank = torch.argsort(torch.argsort(r, dim=-1), dim=-1)
         cap_mask = rank < MAX_EVALUATED_COMPARISONS
@@ -263,15 +271,19 @@ def whdr_hinge_batch(reflectance: torch.Tensor, comparisons: torch.Tensor,
                      delta: float = 0.1, margin: float = 0.05,
                      ratio: float = 1.0, eval_dense: bool = True,
                      generator: Optional[torch.Generator] = None,
-                     kernels: bool = True) -> torch.Tensor:
+                     kernels: bool = True,
+                     draw_rows: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
     """Batch-mean hinge loss (whdr_hinge_loss_layer.py:102-110):
     reflectance [B,H,W] or [B,H,W,C], comparisons [B,K+1,6].  The pairs
     come from one batched gather (K3 on CUDA), whose backward is one
-    scatter-add (K8); ``kernels=False`` gathers with the plain version."""
+    scatter-add (K8); ``kernels=False`` gathers with the plain version.
+    ``draw_rows``: see :func:`_eval_selection_mask`."""
     k = comparisons.shape[1] - 1
     l1, l2, darker, weight, valid, num = _batch_lightness_pairs(
         reflectance, comparisons, kernels)
-    mask = _eval_selection_mask(valid, num, ratio, eval_dense, generator, k)
+    mask = _eval_selection_mask(valid, num, ratio, eval_dense, generator, k,
+                                draw_rows)
     loss = _hinge_per_comparison(l1 / l2, darker, delta, margin)
     zero = torch.zeros_like(weight)
     err = torch.where(mask, weight * loss, zero).sum(dim=1)

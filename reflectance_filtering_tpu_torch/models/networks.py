@@ -269,16 +269,31 @@ def bn_init(channels: int, device=None) -> Dict[str, torch.Tensor]:
 BN_MOMENTUM = 0.999  # caffe moving_average_fraction default
 
 
+def _global_mean(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The channel mean of NHWC ``x`` over the batch of every rank in
+    ``group`` (equal rows on each), differentiable through the all-reduce."""
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(x.mean(dim=(0, 1, 2)), group=group) / size
+
+
 def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
-               train: bool, eps: float = 1e-5):
+               train: bool, eps: float = 1e-5, group=None):
     """Caffe BatchNorm (no learned scale or shift: the reference never
     pairs it with a Scale layer) over NHWC -> (y, the statistics used).
 
     Training normalises with the batch's mean and population variance
     (ddof 0, as ``jnp.var``) and the caller folds them into the running
     statistics (:func:`update_bn_stats`); eval uses the running ones, as
-    caffe's TEST phase does."""
-    if train:
+    caffe's TEST phase does.  Under a process ``group`` (the data-parallel
+    step, each rank holding equal rows of the batch) the moments are the
+    global batch's, as the JAX package's sharded step normalises over the
+    whole batch: all-reduced, with autograd through the reduction."""
+    if train and group is not None:
+        import torch.distributed as dist
+        size = dist.get_world_size(group)
+        mean = _global_mean(x, group, size)
+        var = _global_mean((x - mean) ** 2, group, size)
+    elif train:
         mean = x.mean(dim=(0, 1, 2))
         var = torch.var(x, dim=(0, 1, 2), unbiased=False)
     else:
@@ -377,11 +392,12 @@ def _init_skip_layers(gen, cfg: NetworkConfig, device, suffix: str = "",
 
 def _apply_skip_layers(params: Params, images: torch.Tensor,
                        cfg: NetworkConfig, *, train: bool, kernels: bool,
-                       suffix: str = "", input_grad: bool = False
-                       ) -> Dict[str, Any]:
+                       suffix: str = "", input_grad: bool = False,
+                       bn_group=None) -> Dict[str, Any]:
     """``input_grad``: set only when ``images`` is itself a function of
     the params (the cascade's level-1 trunk); K7's backward then computes
-    the input cotangent, which a leaf input does not need."""
+    the input cotangent, which a leaf input does not need.  ``bn_group``:
+    batch norm's process group (:func:`batch_norm`)."""
     blobs: Dict[str, Any] = {"__bn_stats__": {}}
     if cfg.num_layers >= 1:
         if (kernels and images.device.type == "cuda"
@@ -400,7 +416,7 @@ def _apply_skip_layers(params: Params, images: torch.Tensor,
             if cfg.use_batch_normalization:
                 name = "bn{}{}".format(i, suffix)
                 x, blobs["__bn_stats__"][name] = batch_norm(
-                    params[name], x, train=train)
+                    params[name], x, train=train, group=bn_group)
             x = torch.relu(x)
             skips.append(x)
         cat = torch.cat(skips, dim=-1)
@@ -415,11 +431,13 @@ def _apply_skip_layers(params: Params, images: torch.Tensor,
 
 
 def _apply_cascade(params: Params, images: torch.Tensor, cfg: NetworkConfig,
-                   *, train: bool, kernels: bool) -> Dict[str, Any]:
+                   *, train: bool, kernels: bool,
+                   bn_group=None) -> Dict[str, Any]:
     """cascadeSkipLayers: a skip-layer trunk on the images, the level-0
     reflectance recovered from it, a second trunk on that reflectance."""
     blobs = _apply_skip_layers(params, images, cfg, train=train,
-                               kernels=kernels, suffix="_level0")
+                               kernels=kernels, suffix="_level0",
+                               bn_group=bn_group)
     # the reference's recover layer has no rDirectly mode and falls back to
     # rRelMax, so the level-1 trunk always receives a 3-channel reflectance
     recover_mode = cfg.rs_est_mode
@@ -433,7 +451,7 @@ def _apply_cascade(params: Params, images: torch.Tensor, cfg: NetworkConfig,
     # refl0 depends on the level-0 params: its cotangent must reach them
     blobs.update(_apply_skip_layers(params, refl0, cfg, train=train,
                                     kernels=kernels, suffix="_level1",
-                                    input_grad=True))
+                                    input_grad=True, bn_group=bn_group))
     blobs["__bn_stats__"].update(bn0)
     blobs["RS_est"] = blobs.pop("RS_est_level1")
     blobs["RS_est_before_sigmoid"] = blobs.pop("RS_est_before_sigmoid_level1")
@@ -631,15 +649,16 @@ def init_network(cfg: NetworkConfig, generator: Optional[torch.Generator]
 
 
 def apply_network(params: Params, images: torch.Tensor, cfg: NetworkConfig,
-                  *, train: bool = False, kernels: bool = True
-                  ) -> Dict[str, Any]:
+                  *, train: bool = False, kernels: bool = True,
+                  bn_group=None) -> Dict[str, Any]:
     """Run the network: images NHWC float32 -> blob dict with 'RS_est'.
     ``train`` normalises with batch statistics (returned under
     '__bn_stats__' for :func:`update_bn_stats`), else with the running
-    ones.  cascadeSkipLayers also returns 'RS_est_level0',
-    'reflectance_level0' and 'shading_level0'.  ``kernels=False`` takes
-    the plain per-layer path on any device (the reference run on the
-    card)."""
+    ones; under ``bn_group`` (a process group, the data-parallel step) the
+    batch statistics are the global batch's.  cascadeSkipLayers also
+    returns 'RS_est_level0', 'reflectance_level0' and 'shading_level0'.
+    ``kernels=False`` takes the plain per-layer path on any device (the
+    reference run on the card)."""
     _check_type(cfg)
     t = cfg.network_type
     if t in ("convStatic", "convStaticWithSigmoid"):
@@ -648,10 +667,10 @@ def apply_network(params: Params, images: torch.Tensor, cfg: NetworkConfig,
                                   train=train)
     if t == "convStaticSkipLayers":
         return _apply_skip_layers(params, images, cfg, train=train,
-                                  kernels=kernels)
+                                  kernels=kernels, bn_group=bn_group)
     if t == "cascadeSkipLayers":
         return _apply_cascade(params, images, cfg, train=train,
-                              kernels=kernels)
+                              kernels=kernels, bn_group=bn_group)
     if t == "simpleConvolutionsRelu":
         return _apply_simple_conv_relu(params, images, cfg)
     if t == "convIncreasing":

@@ -160,7 +160,8 @@ def compute_losses(params: Dict, images: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    train: bool = True,
                    metric_comparisons: Optional[torch.Tensor] = None,
-                   preselected: bool = False, kernels: bool = True
+                   preselected: bool = False, kernels: bool = True,
+                   bn_group=None, draw_rows: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward + the full loss graph.  images NHWC, comparisons [B,K+1,6].
 
@@ -172,14 +173,17 @@ def compute_losses(params: Dict, images: torch.Tensor,
     ``kernels=False`` runs the trunk and the gather through their plain
     versions on any device (the reference run on the card).  With batch
     normalization in training, metrics['bn_stats'] holds the detached batch
-    statistics for :func:`update_bn_stats`."""
+    statistics for :func:`update_bn_stats`.  A data-parallel rank passes
+    its process group as ``bn_group`` (batch norm's moments over the global
+    batch) and ``draw_rows`` = (its first row, the global batch) for the
+    capped draw."""
     if metric_comparisons is None:
         metric_comparisons = comparisons
     delta, margin, ratio, eval_dense = loss_cfg.wdm
     if preselected:
         ratio, eval_dense = 1.0, True
     blobs = apply_network(params, images, net_cfg, train=train,
-                          kernels=kernels)
+                          kernels=kernels, bn_group=bn_group)
     mode = net_cfg.rs_est_mode.split("-")[0]
     reflectance, shading = _reflectance(blobs, images, net_cfg)
 
@@ -191,7 +195,7 @@ def compute_losses(params: Dict, images: torch.Tensor,
     # the JAX package draws both levels' hinge selections from one key
     draw_state = None if generator is None else generator.get_state()
     hinge = whdr_hinge_batch(reflectance, comparisons, delta, margin, ratio,
-                             eval_dense, generator, kernels)
+                             eval_dense, generator, kernels, draw_rows)
     metrics["loss_whdr_hinge"] = hinge
     total = loss_cfg.loss_scale_whdr * hinge
 
@@ -217,7 +221,7 @@ def compute_losses(params: Dict, images: torch.Tensor,
         if generator is not None:
             generator.set_state(draw_state)
         hinge0 = whdr_hinge_batch(refl0, comparisons, delta, margin, ratio,
-                                  eval_dense, generator, kernels)
+                                  eval_dense, generator, kernels, draw_rows)
         metrics["loss_whdr_hinge_level0"] = hinge0
         total = total + loss_cfg.loss_scale_whdr * hinge0
         with torch.no_grad():
@@ -226,6 +230,53 @@ def compute_losses(params: Dict, images: torch.Tensor,
 
     metrics["loss_total"] = total
     return total, metrics
+
+
+def _make_step_body(net_cfg: NetworkConfig, loss_cfg: LossConfig,
+                    params: Dict, optimizer: torch.optim.Optimizer,
+                    preselected: bool = False, kernels: bool = True,
+                    mesh=None) -> Callable:
+    """The training step of :func:`make_train_step` and, with a ``mesh``
+    (parallel/mesh.py), of the data-parallel step: each rank's blobs are its
+    rows of the global batch, batch norm takes the global moments, the
+    gradients are all-reduced as a mean before the optimizer steps (the
+    loss is a mean of per-image terms) and the metrics are the ranks'
+    means."""
+    leaves = param_leaves(params)
+
+    def step(images, comparisons, generator=None, metric_comparisons=None):
+        optimizer.zero_grad(set_to_none=True)
+        dp = {}
+        if mesh is not None:
+            n = images.shape[0]
+            dp = dict(bn_group=mesh.group,
+                      draw_rows=(mesh.rank * n, mesh.size * n))
+        total, metrics = compute_losses(
+            params, images, comparisons, net_cfg, loss_cfg, generator,
+            train=True, metric_comparisons=metric_comparisons,
+            preselected=preselected, kernels=kernels, **dp)
+        total.backward()
+        if mesh is not None:
+            grads = [p.grad for p in leaves if p.grad is not None]
+            flat = mesh.all_reduce_(torch.cat([g.reshape(-1)
+                                               for g in grads]))
+            flat /= mesh.size
+            for g, part in zip(grads, flat.split([g.numel()
+                                                  for g in grads])):
+                g.copy_(part.view_as(g))
+        optimizer.step()
+        bn_stats = metrics.pop("bn_stats", None)
+        if bn_stats:
+            update_bn_stats(params, bn_stats)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            keys = sorted(metrics)
+            means = mesh.all_reduce_(torch.stack(
+                [metrics[k].to(torch.float32) for k in keys])) / mesh.size
+            metrics = dict(zip(keys, means.unbind()))
+        return metrics
+
+    return step
 
 
 def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
@@ -237,21 +288,8 @@ def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
     metrics (0-d tensors on the device, detached).  Batch normalization's
     running statistics are folded in after the optimizer step (its
     mean/var leaves get no gradient, so the optimizer leaves them)."""
-
-    def step(images, comparisons, generator=None, metric_comparisons=None):
-        optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(
-            params, images, comparisons, net_cfg, loss_cfg, generator,
-            train=True, metric_comparisons=metric_comparisons,
-            preselected=preselected, kernels=kernels)
-        total.backward()
-        optimizer.step()
-        bn_stats = metrics.pop("bn_stats", None)
-        if bn_stats:
-            update_bn_stats(params, bn_stats)
-        return {k: v.detach() for k, v in metrics.items()}
-
-    return step
+    return _make_step_body(net_cfg, loss_cfg, params, optimizer,
+                           preselected, kernels)
 
 
 def make_val_whdr_fn(net_cfg: NetworkConfig, X_val: Dict,

@@ -22,7 +22,7 @@ reflectance_filtering_tpu/train/predict.py).
 Every prediction runs on an explicit ``device`` (default the card) through
 ``make_predict_fn`` / ``predict_batched``: a flagship skip trunk on a CUDA
 tensor runs the fused trunk kernel K7's forward.  Batches run on one
-device.
+device, or split over a data-parallel mesh (``mesh=``, parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -72,26 +72,52 @@ def make_predict_fn(net_cfg: NetworkConfig) -> Callable:
 
 
 def predict_batched(predict_fn: Callable, params, images: np.ndarray,
-                    batch_size: int = 32, device="cuda"
+                    batch_size: int = 32, device="cuda", mesh=None
                     ) -> Dict[str, np.ndarray]:
     """Run prediction over [N,H,W,3] in batches of ``batch_size`` on
-    ``device``; the outputs come back as numpy."""
+    ``device``; the outputs come back as numpy.  With a ``mesh``
+    (parallel/mesh.py) each batch is split over its ranks, each predicting
+    its rows on the mesh's device (``params`` must be there), and the rows
+    are gathered, so every rank returns the whole result: batch_size is
+    rounded up to a multiple of the mesh size and a ragged batch is padded
+    (with copies of its last image) to one."""
+    if mesh is not None:
+        from ..parallel.mesh import pad_to_multiple, shard_batch
+        batch_size = -(-batch_size // mesh.size) * mesh.size
     outs: Dict[str, List[np.ndarray]] = {}
     for start in range(0, images.shape[0], batch_size):
-        chunk = torch.from_numpy(np.ascontiguousarray(
-            images[start:start + batch_size], np.float32)).to(device)
-        for k, v in predict_fn(params, chunk).items():
-            outs.setdefault(k, []).append(v.cpu().numpy())
+        chunk = np.ascontiguousarray(images[start:start + batch_size],
+                                     np.float32)
+        if mesh is None:
+            res = predict_fn(params, torch.from_numpy(chunk).to(device))
+            take = chunk.shape[0]
+        else:
+            padded, take = pad_to_multiple(chunk, mesh.size)
+            res = {k: mesh.gather(v) for k, v in predict_fn(
+                params, shard_batch(padded, mesh)).items()}
+        for k, v in res.items():
+            outs.setdefault(k, []).append(v[:take].cpu().numpy())
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
 
 
 def score_whdr_per_image(reflectances: np.ndarray, comps: np.ndarray,
-                         delta: float = 0.1, device="cuda") -> np.ndarray:
+                         delta: float = 0.1, device="cuda",
+                         mesh=None) -> np.ndarray:
     """Per-image WHDR over a whole prediction set in one call on
-    ``device``."""
-    r = torch.from_numpy(np.asarray(reflectances, np.float32)).to(device)
-    c = torch.from_numpy(np.asarray(comps, np.float32)).to(device)
-    return whdr_per_image(r, c, delta).cpu().numpy()
+    ``device``; with a ``mesh`` each rank scores its rows on the mesh's
+    device and every rank returns all of them."""
+    r = np.asarray(reflectances, np.float32)
+    c = np.asarray(comps, np.float32)
+    if mesh is None:
+        return whdr_per_image(torch.from_numpy(r).to(device),
+                              torch.from_numpy(c).to(device),
+                              delta).cpu().numpy()
+    from ..parallel.mesh import pad_to_multiple, shard_batch
+    r_p, n = pad_to_multiple(r, mesh.size)
+    c_p, _ = pad_to_multiple(c, mesh.size)
+    per_image = whdr_per_image(shard_batch(r_p, mesh), shard_batch(c_p, mesh),
+                               delta)
+    return mesh.gather(per_image).cpu().numpy()[:n]
 
 
 def predict_and_score(X_val: Dict, params, net_cfg: NetworkConfig,

@@ -15,8 +15,11 @@ BGR batch [B, 3, H, W] to [B, H, W] on ``device``:
     the color guide (K5), then ``clip(rint(q), 0, 255)`` (q = a*I + b
     overshoots [0, 255]).
 
-The JAX package's ``jax.export`` artifacts (``torch.export`` here) are
-not ported yet.
+The JAX package's ``jax.export`` artifacts (``export_flagship``,
+``load_flagship``; ``torch.export`` here) are the one part of the JAX
+package not ported yet: each kernel on the exported path must first be a
+``torch.library`` custom op, since ``torch.export`` cannot trace a ctypes
+launch.
 """
 from __future__ import annotations
 

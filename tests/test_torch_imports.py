@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 reflectance_filtering_tpu_torch pulls in neither JAX nor the JAX package,
-and touches no CUDA."""
+and touches no CUDA; and its multi-process entry point asks for NCCL on the
+card unless the caller names a backend."""
 import json
 import os
 import subprocess
@@ -34,8 +35,11 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["foreign"] == []
     assert not out["cuda_initialized"]
-    for name in ("cli.decompose", "cli.filter", "cli.train",
-                 "data.loader", "losses.losses", "losses.whdr",
+    for name in ("cli.build_dataset", "cli.decompose", "cli.filter",
+                 "cli.train", "data.builder", "data.loader",
+                 "losses.losses", "losses.whdr", "ops.baselines",
+                 "ops.bilateral_grid", "parallel.dryrun", "parallel.mesh",
+                 "parallel.spatial",
                  "models.caffe_io", "models.networks", "models.recover",
                  "ops._build", "ops.bilateral", "ops.bilateral_joint_kernel",
                  "ops.bilateral_kernel", "ops.box_kernel",
@@ -45,3 +49,31 @@ def test_port_imports_no_jax():
                  "train.monitors", "train.predict", "utils.image",
                  "utils.serving", "utils.testimages"):
         assert "reflectance_filtering_tpu_torch." + name in out["imported"]
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_initialize_multihost_asks_for_nccl_on_cuda(monkeypatch):
+    """On a CUDA device the default backend is NCCL; gloo on the card is
+    a backend the caller names; the CPU takes gloo."""
+    import torch.distributed as dist
+    from reflectance_filtering_tpu_torch.parallel import mesh
+    asked = []
+
+    def fake_init(backend, **kw):
+        asked.append((backend, kw["world_size"], kw["rank"]))
+        raise _Stop
+
+    monkeypatch.setattr(dist, "init_process_group", fake_init)
+    for device, backend, want in (("cuda", None, "nccl"),
+                                  ("cuda:0", None, "nccl"),
+                                  ("cuda", "gloo", "gloo"),
+                                  ("cpu", None, "gloo")):
+        try:
+            mesh.initialize_multihost("tcp://localhost:1", 2, 1,
+                                      backend=backend, device=device)
+        except _Stop:
+            pass
+        assert asked.pop() == (want, 2, 1), (device, backend)

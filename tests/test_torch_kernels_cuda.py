@@ -922,3 +922,91 @@ def test_k8_measurement_script_runs(dev):
         assert all(ms > 0 for ms in r["wrapper"].values())
         assert all(r["device"][path]["kernel"] > 0 for path in ("sort",
                                                                 "quadratic"))
+
+
+SHARDED = ["box", "joint", "joint_u8", "gray_self", "color_self", "guided",
+           "chain"]
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_filter_world_one_matches_kernel(dev, name):
+    """Each width-sharded filter on a mesh of one (no group) on the card:
+    the exchange makes the border itself and the kernel runs on the haloed
+    block.  The bilateral kernels sum each pixel's taps in a fixed order,
+    so K2's and K6's results are bitwise the single-device kernel's; K4,
+    K5 and K9 slide float64 sums from the block's start, held to the JAX
+    package's sharded gates."""
+    from reflectance_filtering_tpu_torch.ops.guided import (
+        guided_filter_planar)
+    from reflectance_filtering_tpu_torch.parallel import mesh as pm
+    from reflectance_filtering_tpu_torch.parallel import spatial as ps
+    mesh = pm.make_mesh(dev)
+    rng = np.random.RandomState(3)
+    h, w = 96, 640
+    f = torch.from_numpy((rng.rand(h, w, 3) * 255).astype(np.float32)).to(dev)
+    u8 = torch.floor(f).to(torch.uint8)
+
+    def planar(t):
+        return t.permute(2, 0, 1)[None].float().contiguous()
+
+    if name == "box":
+        got = ps.sharded_box_filter(f, 5, mesh)
+        exp = box_filter_planar(planar(f)[0], 5, "reflect101").permute(
+            1, 2, 0)
+        tol = (1e-5, 1e-3)
+    elif name == "joint":
+        got = ps.sharded_joint_bilateral(f, f[..., :1], mesh)
+        exp = k6.joint_bilateral_planar_batched(
+            planar(f), planar(f[..., :1]))[0].permute(1, 2, 0)
+        tol = None
+    elif name == "joint_u8":
+        got = ps.sharded_joint_bilateral(u8, u8[..., 1:2], mesh)
+        exp = k6.bilateral_packed_joint_batched(
+            planar(u8), planar(u8[..., 1:2]))[0].permute(1, 2, 0)
+        tol = None
+    elif name == "gray_self":
+        got = ps.sharded_bilateral_gray_self(u8[..., 0], mesh, reps=3)
+        exp = bilateral_gray_self(u8[..., 0][None].contiguous(), reps=3)[0]
+        tol = None
+    elif name == "color_self":
+        got = ps.sharded_bilateral_color_self(u8, mesh)
+        exp = k6.bilateral_color_self_batched(planar(u8))[0].permute(1, 2, 0)
+        tol = None
+    elif name == "guided":
+        got = ps.sharded_guided_filter(f, f[..., 0], 45, 3.0, mesh)
+        exp = guided_filter_planar(planar(f), planar(f[..., :1]), 45,
+                                   3.0)[0, 0]
+        tol = (1e-4, 5e-3)
+    else:
+        got = ps.sharded_guided_filter_iterated(u8.float(), u8[..., 0].float(),
+                                                45, 3.0, 3, mesh)
+        exp = guided_filter_iterated(planar(u8), planar(u8[..., :1]), 45,
+                                     3.0, 3, planar=True)[0, 0]
+        tol = (1e-4, 0.05)
+    assert got.shape == exp.shape and got.device.type == "cuda"
+    if tol is None:
+        assert torch.equal(got, exp)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
+                                   rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("ss,sr", [(None, None), (8, 6), (16, 10)])
+def test_bilateral_grid_cuda_matches_cpu(dev, ss, sr):
+    """The grid's plain torch ops on the card against the same call on the
+    CPU: within 1e-3 as floats, 1 uint8 level after rint."""
+    from reflectance_filtering_tpu_torch.ops.bilateral_grid import (
+        bilateral_grid_gray, bilateral_grid_u8)
+    rng = np.random.RandomState(4)
+    j = torch.from_numpy(np.floor(rng.rand(4, 97, 131) * 256).astype(
+        np.float32))
+    s = torch.from_numpy(np.floor(rng.rand(4, 3, 97, 131) * 256).astype(
+        np.float32))
+    got = bilateral_grid_gray(j.to(dev), s.to(dev), 20.0 / 3, 22.0, ss, sr)
+    want = bilateral_grid_gray(j, s, 20.0 / 3, 22.0, ss, sr)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-3)
+    g = np.repeat(j[0].numpy().astype(np.uint8)[..., None], 3, -1)
+    a = bilateral_grid_u8(g, g, 20.0, 22.0, ss, sr, device=dev)
+    b = bilateral_grid_u8(g, g, 20.0, 22.0, ss, sr, device="cpu")
+    assert np.abs(a.astype(np.int32) - b).max() <= 1

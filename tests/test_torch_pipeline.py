@@ -171,11 +171,15 @@ def test_cli_errors_and_help(capsys, tmp_path, photo_png):
                     "--sigma_spatial=22", "--filename_in", photo_png,
                     "--guidance_in", photo_png, "--path_out", str(tmp_path),
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfilt.main(["--filter_type=bilateral_grid", "--sigma_color=3",
-                    "--sigma_spatial=45", "--filename_in", photo_png,
-                    "--guidance_in", photo_png, "--path_out", str(tmp_path),
-                    "--device", "cpu"])
+    # the approximate grid runs now: its own output name and its caveat
+    tfilt.main(["--filter_type=bilateral_grid", "--sigma_color=3",
+                "--sigma_spatial=45", "--filename_in", photo_png,
+                "--guidance_in", photo_png, "--path_out", str(tmp_path),
+                "--device", "cpu"])
+    assert "APPROXIMATE" in capsys.readouterr().err
+    stem = os.path.splitext(os.path.basename(photo_png))[0]
+    assert os.path.isfile(os.path.join(
+        str(tmp_path), stem + "_bilateral_grid_c3.0s45.0.png"))
     if not torch.cuda.is_available():
         # --device defaults to cuda: without a card the CLIs stop and say
         # how to run on the CPU, never falling back quietly
