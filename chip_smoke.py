@@ -72,6 +72,14 @@ Phases (any failure exits nonzero before the result line):
               pipeline_fn("gf") and whdr_batch; every launch counter is reset
               before each path and checked after it, and each result is held
               against the same pipeline through the plain versions;
+  4e. export  utils.serving.export_flagship on the card: cnn, bf and gf
+              artifacts of 32 x 256x256 and one symbolic cnn, saved
+              (torch.export), loaded (load_flagship) and run on phase 4's
+              requests: each bitwise pipeline_fn's output, K1 and K2 (bf)
+              or K5 (gf) launched once a call through the rf:: operators
+              and no other kernel; the symbolic artifact at 1 x 341x512 and
+              4 x 256x256 bitwise decompose_planar; export and load seconds
+              and byte sizes printed;
   4c. chain   ops.guided.guided_filter_iterated(planar=True), the 3x chain
               of the JAX bench's config 4, on one 2160x3840 and one
               4320x7680 frame (C=1), counters reset before each: K9 counted,
@@ -157,8 +165,9 @@ Phases (any failure exits nonzero before the result line):
               measure_k6_table.py; K6's float form in its product geometry
               beside its first port, three other geometries and the
               factored weight, measure_k6_float.py), both slices'
-              images/s, the MP/s of the color-self and BF(reflectance,
-              photo) bilateral, and the training step's ms
+              images/s, each phase 4e artifact's ms per batch in turns
+              with its pipeline_fn, the MP/s of the color-self and
+              BF(reflectance, photo) bilateral, and the training step's ms
               and images/s on the kernels and on the plain versions, the
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
               calls, each K9 launch's ms, K9's six passes timed apart at 4K
@@ -194,7 +203,10 @@ Phases (any failure exits nonzero before the result line):
               and K5's calls split into their kernels by each path; K3's
               device time at 32 x 1181 beside indexing's, and the host's
               microseconds per K3 call split into checks, allocation and
-              launch (host clock around 1,000 calls) (not gated).
+              launch (host clock around 1,000 calls), K1's on one
+              256-pixel row by its wrapper, its rf:: operator alone and the
+              bare launch, and the symbolic cnn artifact's on one 16x16
+              photo beside decompose_planar's (not gated).
 
 Each phase's header shows the seconds since the script started; the line
 before the kernels line, the whole run's.
@@ -247,6 +259,13 @@ K6_MAIN = {"bilateral_color_self": (3, 3, True, True),
            "bilateral_joint": (3, 1, False, False)}
 GF_R, GF_EPS = 45, 3.0                # GF(CNN, image): README c3 s45
 BIG_PLANE = (1, 2160, 3840)           # one 4K plane for the box kernel
+# phase 4e: the exported artifacts, the kernels each one's call launches
+# (chip_smoke's counter names), the symbolic artifact's two shapes
+EXPORT_KINDS = ("cnn", "bf", "gf", "symbolic")
+EXPORT_KERNELS = {"cnn": ("cnn_fwd",),
+                  "bf": ("cnn_fwd", "bilateral_gray_self"),
+                  "gf": ("cnn_fwd", "guided_filter")}
+SYMBOLIC_SHAPES = ((1, 3, 341, 512), (4, 3, 256, 256))
 # the 3x iterated guided chain (BASELINE.json config 4, bench.py:532-575)
 CHAIN_ITERS = 3
 CHAIN_FRAMES = {"4K": (2160, 3840), "8K": (4320, 7680)}
@@ -433,6 +452,18 @@ def device_profile(fn, batches):
         last = max(last, end)
     return (busy / batches / 1e3,
             {k: v / batches / 1e3 for k, v in per_kernel.items()})
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of fn(): the host clock around ``calls``
+    calls and one synchronize, after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
 
 
 def launch_before(name, device, *args):
@@ -1321,6 +1352,7 @@ def main():
         pack_weights, reflectance_cnn, reflectance_cnn_plain)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         gather_pairs, gather_pairs_plain)
+    from reflectance_filtering_tpu_torch.utils import serving
     from reflectance_filtering_tpu_torch.utils.serving import pipeline_fn
     from reflectance_filtering_tpu_torch.cli import train as train_cli
     from reflectance_filtering_tpu_torch.models.networks import (
@@ -2029,6 +2061,57 @@ def main():
             check(dw <= 1e-3, "|dWHDR| <= 0.001 against the plain pipeline")
             check(dl.max().item() <= 1, "<= 1 uint8 level against plain")
 
+    phase("4e. serving export: cnn, bf and gf artifacts of {} x {}x{} and "
+          "a symbolic cnn, exported on the card, saved, loaded, served phase "
+          "4's requests".format(B, H, W))
+    artifacts, export_s, load_s, sizes = {}, {}, {}, {}
+    export_dir = tempfile.mkdtemp(prefix="rf_export_")
+    try:
+        for kind in EXPORT_KINDS:
+            path = os.path.join(export_dir, kind + ".pt2")
+            t0 = time.perf_counter()
+            sizes[kind] = serving.export_flagship(
+                path, B, H, W, device=dev,
+                pipeline="cnn" if kind == "symbolic" else kind,
+                symbolic=kind == "symbolic", params=params)
+            export_s[kind] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            artifacts[kind] = serving.load_flagship(path)
+            load_s[kind] = time.perf_counter() - t0
+            print("{}: export {:.3f} s, load {:.3f} s, {} bytes".format(
+                kind, export_s[kind], load_s[kind], sizes[kind]))
+    finally:
+        shutil.rmtree(export_dir)
+    direct = {"cnn": pipeline_fn("cnn", net, dev), "bf": bf, "gf": gf}
+    served_by = {"cnn": requests, "bf": requests, "gf": gf_requests}
+    with torch.no_grad():
+        for kind, run in direct.items():
+            for img in served_by[kind]:
+                exp = run(img)
+                reset_launches()
+                got = artifacts[kind](img)
+                torch.cuda.synchronize()
+                counts = {name: fn.launches for name, fn in wrappers.items()}
+                want = {name: int(name in EXPORT_KERNELS[kind])
+                        for name in wrappers}
+                check(counts == want, "the {} artifact launched {} once a "
+                      "call and no other kernel".format(
+                          kind, ", ".join(EXPORT_KERNELS[kind])))
+                check(got.shape == (B, H, W) and torch.equal(got, exp),
+                      "the {} artifact bitwise pipeline_fn('{}')".format(
+                          kind, kind))
+        srng = np.random.RandomState(args.seed + 14)
+        for shape in SYMBOLIC_SHAPES:
+            img = torch.from_numpy(photos(srng, shape[0], *shape[2:])).to(dev)
+            reset_launches()
+            got = artifacts["symbolic"](img)
+            torch.cuda.synchronize()
+            check(reflectance_cnn.launches == 1, "the symbolic artifact "
+                  "launched K1 once at {}".format(shape))
+            check(torch.equal(got, dec_cli.decompose_planar(weights, img)),
+                  "the symbolic artifact at {} bitwise decompose_planar"
+                  .format(shape))
+
     phase("4c. the iterated chain: guided_filter_iterated(planar=True), "
           "{} iterations".format(CHAIN_ITERS))
     chain_data, chain_launches = {}, {}
@@ -2458,6 +2541,11 @@ def main():
                     3))
         gf_ms = time_ms(
             lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]), 10)
+        # each loaded artifact in turns with its direct call, one batch
+        export_ms = {kind: time_turns(
+            lambda: artifacts[kind](served_by[kind][0]),
+            lambda: direct[kind](served_by[kind][0]), 10)
+            for kind in direct}
         # every instantiation of K6 at phase 3's 8 x 256x256 planes, the
         # kernels back to back so that no plain loop idles the card between
         # them; then the plain versions, host-bound loops of 3,421 taps,
@@ -2563,6 +2651,10 @@ def main():
     print("gf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
           "({:.2f} MP/s)".format(gf_ms, B, B / gf_ms * 1e3,
                                  B * H * W / gf_ms / 1e3))
+    for kind, (art_ms, dir_ms) in export_ms.items():
+        print("{} artifact: {:.4f} ms per batch of {}, pipeline_fn('{}') "
+              "{:.4f} ms, in turns (artifact - direct {:+.4f} ms)".format(
+                  kind, art_ms, B, kind, dir_ms, art_ms - dir_ms))
     for (cj, cs, self_guided, u8_tile), (ms, plain_ms) in k6_times.items():
         print("K6 {} cj={} cs={}{} {}x{}x{}: kernel {:.4f} ms, plain {:.4f} "
               "ms".format("u8" if u8_tile else "float", cj, cs,
@@ -2776,14 +2868,35 @@ def main():
             "whole gather_pairs": lambda: gather_pairs(plane, *idx),
             "indexing (library)": lambda: plane[bi, yi, xi]}
         for part, run in host.items():
-            run()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                run()
-            torch.cuda.synchronize()
-            print("K3 host {}: {:.2f} us per call".format(
-                part, (time.perf_counter() - t0) * 1e3))
+            print("K3 host {}: {:.2f} us per call".format(part,
+                                                          host_us(run)))
+        # what the rf:: operator layer costs the host: K1 on one 256-pixel
+        # row (device time ~nil) by its wrapper, the operator called
+        # directly, and the bare launch into a buffer made once
+        xs = x[:1, :, :256].contiguous()
+        k1_out = torch.empty((1, 256), dtype=torch.float32, device=dev)
+        host = {
+            "wrapper (checks + rf::cnn_fwd)": lambda: reflectance_cnn(
+                xs, weights, srgb_input=True),
+            "rf::cnn_fwd alone": lambda: torch.ops.rf.cnn_fwd(
+                xs, weights, True),
+            "bare launch": lambda: _build.launch(
+                "rf_cnn_fwd", xs.device, xs.data_ptr(), weights.data_ptr(),
+                k1_out.data_ptr(), 1, 256, 1)}
+        for part, run in host.items():
+            print("K1 host {}: {:.2f} us per call".format(part,
+                                                          host_us(run)))
+        # what a loaded artifact's graph module adds to a call (its input
+        # checks and graph nodes): the symbolic cnn artifact on one 16x16
+        # photo (device time ~nil) beside the direct call
+        tiny = torch.from_numpy(photos(np.random.RandomState(args.seed), 1,
+                                       16, 16)).to(dev)
+        for part, run in (
+                ("symbolic artifact", lambda: artifacts["symbolic"](tiny)),
+                ("decompose_planar", lambda: dec_cli.decompose_planar(
+                    weights, tiny))):
+            print("cnn host {}: {:.2f} us per call".format(part,
+                                                           host_us(run)))
 
     sources = {
         "cnn_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_fwd.cu",

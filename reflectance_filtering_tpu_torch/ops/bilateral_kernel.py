@@ -20,6 +20,10 @@ order.  On integer levels the two forms differ only in float32 rounding.  Kernel
 and plain version sum in the same tap order but round differently (the
 kernel fuses multiply and add), so they agree to f32 rounding (the uint8
 gate), not bitwise.
+
+The wrapper runs the ``torch.library`` operator ``rf::bilateral_gray_self``
+(the bf serving artifact records it, utils/serving.py); the operator's
+body makes the tables and checks the radius when it runs.
 """
 from __future__ import annotations
 
@@ -142,21 +146,14 @@ def _tables(device: torch.device, radius: int, reps: int, gcc: float,
             device)
 
 
-def bilateral_gray_self(x: torch.Tensor, d: int = -1,
-                        sigma_color: float = 20.0,
-                        sigma_space: float = 22.0,
-                        reps: int = 3) -> torch.Tensor:
-    """Self-guided gray bilateral: x [N, H, W] uint8 levels (cv2's table
-    form) or float32 in 0-255 units (the exp form), ``reps`` identical
-    channels -> float32 [N, H, W].
-
-    A CPU tensor runs :func:`bilateral_gray_self_plain`; a CUDA tensor
-    launches the kernel."""
-    if isinstance(x, torch.Tensor) and x.dtype not in (torch.uint8,
-                                                       torch.float32):
-        raise TypeError("x must be uint8 levels or float32, got {}".format(
-            x.dtype))
-    _build.check_tensor(x, "x", x.dtype, 3)
+@torch.library.custom_op("rf::bilateral_gray_self", mutates_args=(),
+                         schema="(Tensor x, int d, float sigma_color, "
+                                "float sigma_space, int reps) -> Tensor")
+def _bilateral_gray_self_op(x: torch.Tensor, d: int, sigma_color: float,
+                            sigma_space: float, reps: int) -> torch.Tensor:
+    """K2 as an operator ``torch.export`` can trace: a CPU tensor runs
+    :func:`bilateral_gray_self_plain`, a CUDA tensor launches the kernel
+    (its tables built here, once per device and parameter set)."""
     if x.device.type == "cpu":
         return bilateral_gray_self_plain(x, d, sigma_color, sigma_space, reps)
     _build.require_cuda(x, "bilateral_gray_self")
@@ -180,6 +177,33 @@ def bilateral_gray_self(x: torch.Tensor, d: int = -1,
                       gsc)
         bilateral_gray_self.launches += 1
     return out
+
+
+@_bilateral_gray_self_op.register_fake
+def _(x, d, sigma_color, sigma_space, reps):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+def bilateral_gray_self(x: torch.Tensor, d: int = -1,
+                        sigma_color: float = 20.0,
+                        sigma_space: float = 22.0,
+                        reps: int = 3) -> torch.Tensor:
+    """Self-guided gray bilateral: x [N, H, W] uint8 levels (cv2's table
+    form) or float32 in 0-255 units (the exp form), ``reps`` identical
+    channels -> float32 [N, H, W].
+
+    Runs the operator ``torch.ops.rf.bilateral_gray_self``: a CPU tensor
+    runs :func:`bilateral_gray_self_plain`; a CUDA tensor launches the
+    kernel."""
+    if isinstance(x, torch.Tensor) and x.dtype not in (torch.uint8,
+                                                       torch.float32):
+        raise TypeError("x must be uint8 levels or float32, got {}".format(
+            x.dtype))
+    _build.check_tensor(x, "x", x.dtype, 3)
+    if x.device.type != "cpu":
+        _build.require_cuda(x, "bilateral_gray_self")
+    return torch.ops.rf.bilateral_gray_self(x, int(d), float(sigma_color),
+                                            float(sigma_space), int(reps))
 
 
 bilateral_gray_self.launches = 0

@@ -12,6 +12,11 @@ too few for the floor(r * 255) byte gate.  Layer 0 and the 160 -> 1 fuse
 are f32 FMAs.  The kernel splits and reorders the weights itself into
 shared memory, so :func:`pack_weights` is only a flattening of the
 module's ``[in, out]`` matrices (see the notes in csrc/cnn_fwd.cu).
+
+The wrapper runs the ``torch.library`` operator ``rf::cnn_fwd``, which
+``torch.export`` records in the serving artifacts (utils/serving.py): its
+body dispatches on the device, its fake implementation gives the output's
+shape to the tracer.
 """
 from __future__ import annotations
 
@@ -59,26 +64,18 @@ def reflectance_cnn_plain(x: torch.Tensor, weights: torch.Tensor, *,
     return mlp_forward(x.transpose(1, 2), *_unpack(weights))[..., 0]
 
 
-def reflectance_cnn(x: torch.Tensor, weights: torch.Tensor, *,
-                    srgb_input: bool) -> torch.Tensor:
-    """Fused flagship forward: planar x [B, 3, HW] f32 (RGB in [0, 1];
-    sRGB with ``srgb_input=True``, linear otherwise) and the flat weights
-    of :func:`pack_weights` -> reflectance intensity [B, HW] in (0, 1).
-
-    A CPU tensor runs :func:`reflectance_cnn_plain`; a CUDA tensor
-    launches the kernel."""
-    _build.check_tensor(x, "x", torch.float32, 3)
-    _build.check_tensor(weights, "weights", torch.float32, 1)
-    if x.shape[1] != 3 or weights.numel() != NUM_WEIGHTS:
-        raise ValueError("expected x [B, 3, HW] and weights [{}], got {} "
-                         "and {}".format(NUM_WEIGHTS, tuple(x.shape),
-                                         tuple(weights.shape)))
-    if weights.device != x.device:
-        raise ValueError("x and weights must share a device")
+@torch.library.custom_op("rf::cnn_fwd", mutates_args=(),
+                         schema="(Tensor x, Tensor weights, bool srgb_input)"
+                                " -> Tensor")
+def _cnn_fwd(x: torch.Tensor, weights: torch.Tensor,
+             srgb_input: bool) -> torch.Tensor:
+    """K1 as an operator ``torch.export`` can trace: a CPU tensor runs
+    :func:`reflectance_cnn_plain`, a CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return reflectance_cnn_plain(x, weights, srgb_input=srgb_input)
     _build.require_cuda(x, "reflectance_cnn")
     b, _, hw = x.shape
+    # checked here, at call time: a symbolic export's batch is unbounded
     if b > 65535:
         raise ValueError("batch {} exceeds the kernel's grid limit of "
                          "65535".format(b))
@@ -89,6 +86,32 @@ def reflectance_cnn(x: torch.Tensor, weights: torch.Tensor, *,
                       int(bool(srgb_input)))
         reflectance_cnn.launches += 1
     return out
+
+
+@_cnn_fwd.register_fake
+def _(x, weights, srgb_input):
+    return x.new_empty((x.shape[0], x.shape[2]))
+
+
+def reflectance_cnn(x: torch.Tensor, weights: torch.Tensor, *,
+                    srgb_input: bool) -> torch.Tensor:
+    """Fused flagship forward: planar x [B, 3, HW] f32 (RGB in [0, 1];
+    sRGB with ``srgb_input=True``, linear otherwise) and the flat weights
+    of :func:`pack_weights` -> reflectance intensity [B, HW] in (0, 1).
+
+    Runs the operator ``torch.ops.rf.cnn_fwd``: a CPU tensor runs
+    :func:`reflectance_cnn_plain`; a CUDA tensor launches the kernel."""
+    _build.check_tensor(x, "x", torch.float32, 3)
+    _build.check_tensor(weights, "weights", torch.float32, 1)
+    if x.shape[1] != 3 or weights.numel() != NUM_WEIGHTS:
+        raise ValueError("expected x [B, 3, HW] and weights [{}], got {} "
+                         "and {}".format(NUM_WEIGHTS, tuple(x.shape),
+                                         tuple(weights.shape)))
+    if weights.device != x.device:
+        raise ValueError("x and weights must share a device")
+    if x.device.type != "cpu":
+        _build.require_cuda(x, "reflectance_cnn")
+    return torch.ops.rf.cnn_fwd(x, weights, bool(srgb_input))
 
 
 reflectance_cnn.launches = 0

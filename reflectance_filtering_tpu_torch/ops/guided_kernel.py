@@ -16,6 +16,10 @@ to the plain box's float32 rounding, not bitwise.  On the card the kernel
 runs its fused pair (the moment planes kept in shared memory) wherever
 that fits the frame's width (:func:`fused_fits`), else its four passes;
 :func:`fused_path` mirrors the choice.
+
+The wrapper runs the ``torch.library`` operator ``rf::guided_filter`` (the
+gf serving artifact records it, utils/serving.py); the operator's body
+allocates the kernel's workspaces and splits the channels into groups.
 """
 from __future__ import annotations
 
@@ -205,23 +209,14 @@ def by_channel_groups(src: torch.Tensor, launch) -> torch.Tensor:
     return out
 
 
-def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
-                        eps: float, path: str = "auto",
-                        band: int = 0) -> torch.Tensor:
-    """Guided filter with a color guide: guide [N, 3, H, W], src
-    [N, C, H, W] float32 -> [N, C, H, W].
-
-    A CPU tensor runs :func:`guided_filter_fused_plain`; a CUDA tensor
-    launches the kernel (src channels in groups of at most three, each
-    group one kernel call that recomputes the guide's statistics).  The
-    kernel takes its fused pair or its four passes by shape
-    (:func:`fused_path`); ``path`` "fused" or "four-pass" forces one (the
-    tests and the measurements), and ``band`` sets the fused blocks'
-    output rows (0: :func:`fused_band`'s rule)."""
-    check_guided(guide, radius, (("src", src),))
-    if path not in PATHS:
-        raise ValueError("path must be one of {}, got {!r}".format(
-            sorted(PATHS), path))
+@torch.library.custom_op("rf::guided_filter", mutates_args=(),
+                         schema="(Tensor guide, Tensor src, int radius, "
+                                "float eps, str path, int band) -> Tensor")
+def _guided_filter_op(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                      eps: float, path: str, band: int) -> torch.Tensor:
+    """K5 as an operator ``torch.export`` can trace: a CPU tensor runs
+    :func:`guided_filter_fused_plain`, a CUDA tensor launches the kernel
+    (its workspaces allocated here, so they are no inputs of a graph)."""
     if guide.device.type == "cpu":
         return guided_filter_fused_plain(guide, src, radius, eps)
     _build.require_cuda(guide, "guided_filter_fused")
@@ -252,6 +247,35 @@ def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
             guided_filter_fused.fused_launches += 1
 
     return by_channel_groups(src, launch)
+
+
+@_guided_filter_op.register_fake
+def _(guide, src, radius, eps, path, band):
+    return torch.empty_like(src)
+
+
+def guided_filter_fused(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                        eps: float, path: str = "auto",
+                        band: int = 0) -> torch.Tensor:
+    """Guided filter with a color guide: guide [N, 3, H, W], src
+    [N, C, H, W] float32 -> [N, C, H, W].
+
+    Runs the operator ``torch.ops.rf.guided_filter``: a CPU tensor runs
+    :func:`guided_filter_fused_plain`; a CUDA tensor launches the kernel
+    (src channels in groups of at most three, each group one kernel call
+    that recomputes the guide's statistics).  The kernel takes its fused
+    pair or its four passes by shape (:func:`fused_path`); ``path``
+    "fused" or "four-pass" forces one (the tests and the measurements), and
+    ``band`` sets the fused blocks' output rows (0: :func:`fused_band`'s
+    rule)."""
+    check_guided(guide, radius, (("src", src),))
+    if path not in PATHS:
+        raise ValueError("path must be one of {}, got {!r}".format(
+            sorted(PATHS), path))
+    if guide.device.type != "cpu":
+        _build.require_cuda(guide, "guided_filter_fused")
+    return torch.ops.rf.guided_filter(guide, src, int(radius), float(eps),
+                                      path, int(band))
 
 
 guided_filter_fused.launches = 0

@@ -22,9 +22,11 @@ splits one call into its kernels by ``torch.profiler``: K4 by each form on
 ``--compare LABEL`` prints one JSON line of times (CUDA events, inputs
 made on the card from ``--seed``) through the wrappers as a tree of the
 previous PR has them too: K2 at radius 33 on uint8 levels and on float32,
-K6's three main instantiations at radius 33, K4, K5 and the 4K and 8K 3x
-chains.  Run it from the roots of two trees in one call on the card, in
-turns (a, b, b, a), to compare them on one card.
+K6's three main instantiations at radius 33, K4, K5, the 4K and 8K 3x
+chains, the bf and gf served batches (``utils.serving.pipeline_fn``, seeded
+weights) and K1 on one 256-pixel row, where the host binds it.  Run it
+from the roots of two trees in one call on the card, in turns (a, b, b,
+a), to compare them on one card.
 
 Needs a CUDA device: without one it exits nonzero and builds nothing.
 """
@@ -240,6 +242,24 @@ def compare(device, seed: int = 0) -> Dict[str, float]:
                                            planar=True), 10 if h < 4000
             else 4)
         del cg, cs
+    # the served batches end to end and K1 where the host binds it (one
+    # 256-pixel row): what the wrappers' dispatch costs a call
+    from ..models.networks import (ReflectanceNet, params_from_numpy,
+                                   seeded_reference_params)
+    from ..ops.cnn_kernel import pack_weights, reflectance_cnn
+    from ..utils.serving import pipeline_fn
+    net = ReflectanceNet()
+    net.load_state_dict(params_from_numpy(seeded_reference_params(seed)))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    photos = levels(gen, B, 3, H, W).to(torch.uint8)
+    for kind in ("bf", "gf"):
+        serve = pipeline_fn(kind, net, device)
+        times["{} served 32x256x256".format(kind)] = time_ms(
+            lambda: serve(photos), 10)
+    w = pack_weights(net).to(device)
+    row = torch.rand((1, 3, 256), device=device, generator=gen)
+    times["K1 1x3x256 (host-bound)"] = time_ms(
+        lambda: reflectance_cnn(row, w, srgb_input=True), 200)
     return times
 
 

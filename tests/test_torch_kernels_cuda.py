@@ -1010,3 +1010,101 @@ def test_bilateral_grid_cuda_matches_cpu(dev, ss, sr):
     a = bilateral_grid_u8(g, g, 20.0, 22.0, ss, sr, device=dev)
     b = bilateral_grid_u8(g, g, 20.0, 22.0, ss, sr, device="cpu")
     assert np.abs(a.astype(np.int32) - b).max() <= 1
+
+
+# the wrappers whose launches each serving pipeline adds, once a batch
+SERVED_KERNELS = {"cnn": (reflectance_cnn,),
+                  "bf": (reflectance_cnn, bilateral_gray_self),
+                  "gf": (reflectance_cnn, guided_filter_fused)}
+
+
+def _seeded_model(tmp_path):
+    """(a seeded caffemodel's path, the same weights as a ReflectanceNet)."""
+    from test_torch_caffe_io import caffemodel_bytes
+    params = seeded_reference_params(6)
+    path = tmp_path / "seeded.caffemodel"
+    path.write_bytes(caffemodel_bytes(params))
+    net = ReflectanceNet()
+    net.load_state_dict(params_from_numpy(params))
+    return str(path), net
+
+
+def _served_photos(dev, shape, seed):
+    return torch.from_numpy((np.random.RandomState(seed).rand(*shape)
+                             * 255).astype(np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["cnn", "bf", "gf"])
+def test_cuda_artifact_is_bitwise_the_direct_call(dev, kind, tmp_path):
+    """An artifact exported on the card runs K1, K2 and K5 through the rf::
+    operators: bitwise pipeline_fn's output, one launch a kernel a call."""
+    from reflectance_filtering_tpu_torch.utils import serving
+    model_path, net = _seeded_model(tmp_path)
+    path = str(tmp_path / "{}.pt2".format(kind))
+    serving.export_flagship(path, 2, 64, 80, device=dev, pipeline=kind,
+                            weights_path=model_path)
+    fn = serving.load_flagship(path)
+    img = _served_photos(dev, (2, 3, 64, 80), 1)
+    with torch.no_grad():
+        exp = serving.pipeline_fn(kind, net, dev)(img)
+    kernels = (reflectance_cnn, bilateral_gray_self, guided_filter_fused)
+    before = [k.launches for k in kernels]
+    got = fn(img)
+    torch.cuda.synchronize()
+    rose = [k.launches - b for k, b in zip(kernels, before)]
+    assert rose == [int(k in SERVED_KERNELS[kind]) for k in kernels]
+    assert got.device.type == "cuda" and torch.equal(got, exp)
+
+
+def test_cuda_symbolic_artifact_serves_any_shape(dev, tmp_path):
+    from reflectance_filtering_tpu_torch.cli.decompose import decompose_planar
+    from reflectance_filtering_tpu_torch.utils import serving
+    model_path, net = _seeded_model(tmp_path)
+    path = str(tmp_path / "any.pt2")
+    serving.export_flagship(path, 0, 0, 0, device=dev, symbolic=True,
+                            weights_path=model_path)
+    fn = serving.load_flagship(path)
+    weights = pack_weights(net.to(dev))
+    for i, shape in enumerate([(1, 3, 45, 67), (3, 3, 32, 32)]):
+        img = _served_photos(dev, shape, 2 + i)
+        before = reflectance_cnn.launches
+        got = fn(img)
+        assert reflectance_cnn.launches == before + 1
+        assert torch.equal(got, decompose_planar(weights, img))
+
+
+def test_ops_launch_the_kernels_and_match_plain(dev):
+    """The rf:: operators called directly: on a CUDA tensor each launches
+    its kernel (counted once), bitwise its wrapper, and agrees with its
+    plain version as the wrapper tests gate it."""
+    net = ReflectanceNet()
+    net.load_state_dict(params_from_numpy(seeded_reference_params(3)))
+    w = pack_weights(net.to(dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(2, 3, 999, device=dev, generator=gen)
+    levels = (torch.rand(2, 37, 70, device=dev, generator=gen)
+              * 255).to(torch.uint8)
+    guide = torch.floor(torch.rand(2, 3, 40, 52, device=dev, generator=gen)
+                        * 256)
+    src = torch.floor(torch.rand(2, 1, 40, 52, device=dev, generator=gen)
+                      * 256)
+    cases = [
+        (reflectance_cnn, lambda: torch.ops.rf.cnn_fwd(x, w, True),
+         lambda: reflectance_cnn(x, w, srgb_input=True),
+         lambda: reflectance_cnn_plain(x, w, srgb_input=True), 1e-5),
+        (bilateral_gray_self,
+         lambda: torch.ops.rf.bilateral_gray_self(levels, -1, 20.0, 22.0, 3),
+         lambda: bilateral_gray_self(levels, -1, 20.0, 22.0, 3),
+         lambda: bilateral_gray_self_plain(levels, -1, 20.0, 22.0, 3), 1e-3),
+        (guided_filter_fused,
+         lambda: torch.ops.rf.guided_filter(guide, src, 9, 3.0, "auto", 0),
+         lambda: guided_filter_fused(guide, src, 9, 3.0),
+         lambda: guided_filter_fused_plain(guide, src, 9, 3.0), 0.05),
+    ]
+    for wrapper, op, via_wrapper, plain, atol in cases:
+        before = wrapper.launches
+        got = op()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got, via_wrapper())
+        assert (got - plain()).abs().max().item() <= atol
