@@ -85,12 +85,25 @@ Phases (any failure exits nonzero before the result line):
               4320x7680 frame (C=1), counters reset before each: K9 counted,
               K5 not; the 4K result held against the plain chain;
   4t. train  train.loop.fit for 20 steps of batch 20 x 256x256, K = 1181,
-              on a seeded synthetic set of 40 images resident on the card,
-              once through the kernels (K7 forward and backward, K3, K8:
-              each counted) and once through the plain versions on the card
-              (no kernel counted): every step's loss_total within 1e-3
-              relative; then 10 steps, a checkpoint, a resume for 10 more,
-              against the 20 uninterrupted steps (params within 1e-6);
+              on a seeded synthetic set of 40 images resident on the card
+              (fit's chunked trainer: an eager warm-up step, one capture of
+              the step as a CUDA graph, then replays), once through the
+              kernels (K7 forward and backward, K3 twice, K8: each counted
+              by its wrapper in the warm-up step and, recorded in the
+              capture, in every replay: exactly its count a step times 20)
+              and once through the plain versions on the card, also
+              captured (no kernel counted): every step's loss_total within
+              1e-3 relative; then 10 steps, a checkpoint, a resume for 10
+              more, against the 20 uninterrupted steps (params within
+              1e-6); then 70 steps with a checkpoint every 33 (chunks of
+              32, 1, 32, 1 and 4) against the per-step trainer
+              (DEVICE_FEED_BUDGET_BYTES = 0): the same snapshots, params
+              within 1e-6; the resume from step 33 against the 70
+              uninterrupted steps (1e-6); one chunk of 32 replays under
+              torch.profiler: K7's forward, backward and block sum, K3
+              (twice) and K8 each ran in every replayed step on the card,
+              as many times as the wrappers' counters say, one graph
+              launch a step;
   4n. nets    the seven networkTypes (batch norm on and off for the
               skip-layer trunk and the cascade; the train CLI's default
               widths) through train.loop.compute_losses at batch 4 x 64x64
@@ -185,7 +198,12 @@ Phases (any failure exits nonzero before the result line):
               in turns, wrapper and device times, on the training step's
               points spread and crowded and on three other shapes
               (reflectance_filtering_tpu_torch/scripts/measure_k8.py);
-              the decompose path from phase 5's snapshot:
+              fit's steady ms per step and images/s at 20 x 256x256, K =
+              1181, the set resident (chunked) and host-fed (per-step) in
+              turns, and the host's ms to issue an eager and a replayed step
+              (reflectance_filtering_tpu_torch/scripts/
+              measure_fit_steady.py, printed again in phase 7 beside the
+              step's busy time); the decompose path from phase 5's snapshot:
               predict_batched of 16 frames of 1080x1920 in batches of 8
               (frames/s on the host's clock; finite, frame 0 within 1e-4 of
               the plain per-layer path on the card) and K7's forward at a
@@ -197,8 +215,14 @@ Phases (any failure exits nonzero before the result line):
               phase 4p's halo exchange and per-rank kernel times (two
               processes sharing one card, not a multi-card figure);
   7. profile  each slice's, the training step's and the 4K chain's device
-              busy time and per-kernel device times (torch.profiler), and
-              the idle share against phase 6's time in the same run (K8's
+              busy time and per-kernel device times (torch.profiler after
+              warm-up calls, every call's kernels the same, else taken
+              again: utils/profiling.py::profile_calls; the busy time no
+              longer than phase 6's wall time plus 3%, K2's trace time in
+              the bf slice within 5% of its CUDA-event time; beside them,
+              how many records a session with no warm-up calls lost),
+              and the idle share against phase 6's time in the same run
+              (a resident fit's against a replayed step's busy time; K8's
               kernel and the memsets apart in the step's split); K4's
               and K5's calls split into their kernels by each path; K3's
               device time at 32 x 1181 beside indexing's, and the host's
@@ -215,7 +239,9 @@ The second-to-last line is {"kernels": [...]} with each kernel's launches in
 the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
 K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
 color-self runs, and the direct joint_bilateral_filter_fast call; K7's
-forward and backward and K8: the 20 training steps; K9's two wrappers: the
+forward and backward and K8: the 20 training steps, the warm-up step's
+launches and the replays' as the capture recorded them; K9's two wrappers:
+the
 4K chain; K7's split: its run in phase 6), its measured error and
 times, and its bound: the larger of the bytes it must move over 3.35 TB/s
 and its operations, each kind over its rate: float32 operations over 66.9
@@ -275,6 +301,18 @@ TB, TRAIN_N, TRAIN_VAL_N, TRAIN_STEPS = 20, 40, 20, 20
 TRAIN_FLAGS = ["--networkType=convStaticSkipLayers", "--numLayers=5",
                "--num_filters_log=5", "--kernel_pad=0",
                "--RS_est_mode=rDirectly"]
+# phase 4t's chunked trainer: 70 steps with a checkpoint every 33, so the
+# chunks run 32, 1 | 32, 1 | 4 (two full chunks, each checkpoint off a
+# chunk boundary, a remainder)
+CHUNK_RUN_STEPS, CHUNK_CKPT_STEPS = 70, 33
+# the training kernels' device names (substrings), launches a step (the
+# hinge's and the metric's gathers, the hinge's scatter) and the counter of
+# the wrapper that launches each (K7's backward launches its block sum)
+TRAIN_STEP_KERNELS = {"K7 forward": ("trunk_fwd", 1, "cnn_train_fwd"),
+                      "K7 backward": ("trunk_bwd_kernel", 1, "cnn_train_bwd"),
+                      "K7 block sum": ("sum_partials", 1, "cnn_train_bwd"),
+                      "K3 gather": ("whdr_gather_kernel", 2, "whdr_gather"),
+                      "K8 scatter": ("whdr_scatter", 1, "whdr_scatter")}
 # K7 off the flagship: (n, ci, f, cout) on a 37x53 frame
 K7_OTHER = [(2, 3, 16, 1), (1, 3, 32, 1), (2, 3, 128, 1), (3, 3, 16, 6)]
 # phase 4n: (networkType, batch norm) at batch NET_B of NET_HW x NET_HW
@@ -429,29 +467,34 @@ def time_turns(fn_a, fn_b, iters, rounds=7):
 
 def device_profile(fn, batches):
     """Device time of fn() per call in ms, from torch.profiler over
-    ``batches`` calls after one warm-up: the busy time (the union of every
-    kernel's and copy's interval on the card) and each kernel's total."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(batches):
-            fn()
-        torch.cuda.synchronize()
-    # user annotations (e.g. "Optimizer.step#Adam.step") are ranges on the
-    # device timeline that span kernels already counted: left out
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    busy, last, per_kernel = 0.0, float("-inf"), {}
-    for start, end, name in spans:
-        per_kernel[name] = per_kernel.get(name, 0.0) + end - start
+    ``batches`` calls (``utils.profiling.profile_calls``: after its warm-up
+    calls, each call's kernels checked against the others'): the busy time
+    (the union of every kernel's and copy's interval on the card) and each
+    kernel's total."""
+    from reflectance_filtering_tpu_torch.utils.profiling import (
+        profile_calls)
+    try:
+        per_call = profile_calls(fn, batches)[0]
+    except RuntimeError as exc:
+        check(False, str(exc))
+    busy, per_kernel, _ = device_spans(
+        [event for call in per_call for event in call])
+    return (busy / batches,
+            {k: v / batches for k, v in per_kernel.items()})
+
+
+def device_spans(events):
+    """From device events (name, start µs, end µs): (the card's busy ms,
+    the union of their intervals; each name's total ms; each name's
+    count)."""
+    busy, last, per_kernel, counts = 0.0, float("-inf"), {}, {}
+    for start, end, name in sorted((start, end, name)
+                                   for name, start, end in events):
+        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3
+        counts[name] = counts.get(name, 0) + 1
         busy += max(0.0, end - max(start, last))
         last = max(last, end)
-    return (busy / batches / 1e3,
-            {k: v / batches / 1e3 for k, v in per_kernel.items()})
+    return busy / 1e3, per_kernel, counts
 
 
 def host_us(fn, calls=1000):
@@ -699,6 +742,143 @@ def decompose_inputs(folder, seed):
         "-combined", "-r", "-s", "-baseline_rgbMean-combined",
         "-baseline_rgbNorm-combined")]
     return pngs, movies
+
+
+def max_param_diff(a, b):
+    """The largest |a - b| over two param trees of tensors."""
+    return max((a[layer][part] - b[layer][part]).abs().max().item()
+               for layer in b for part in b[layer])
+
+
+def trace_replayed_chunk(dev, seed, data):
+    """A chunk of TRAIN_CHUNK_STEPS steps of the flagship at TB x 256x256
+    (the warm-up step, the capture, the replays), then chunks of replays
+    only: one counted by the wrappers, then those of profile_calls.
+    Returns the graph launches in each of the profile's two kept chunks,
+    each training kernel's launches on the card (the last of them) and on
+    its wrapper's counter in a chunk, and the device busy ms and ms by
+    kernel name a step."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
+        gather_pairs, scatter_pairs)
+    from reflectance_filtering_tpu_torch.train import loop
+    from reflectance_filtering_tpu_torch.utils.profiling import (
+        profile_calls)
+    flagship = NetworkConfig()
+    params = loop.trainable(init_network(
+        flagship, torch.Generator().manual_seed(seed)), dev)
+    resident = [torch.from_numpy(np.concatenate([a, a[:TB - 1]])).to(dev)
+                for a in (data["images"], data["comparisons"])]
+    chunk = loop.make_train_chunk(
+        flagship, loop.LossConfig(), params,
+        loop.make_optimizer("ADAM", 1e-3, params), resident[0], resident[1],
+        resident[1], TB)
+    k = loop.TRAIN_CHUNK_STEPS
+    chunk(0, 0, k)
+    torch.cuda.synchronize()
+    wrappers = {"cnn_train_fwd": k7.trunk_forward,
+                "cnn_train_bwd": k7.trunk_backward,
+                "whdr_gather": gather_pairs, "whdr_scatter": scatter_pairs}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    chunk(k, 0, k)
+    counted = {part: wrappers[counter].launches - before[counter]
+               for part, (_, _, counter) in TRAIN_STEP_KERNELS.items()}
+    per_call, events = profile_calls(lambda: chunk(k, 0, k), 2)
+    busy, per_kernel, kernels = device_spans(per_call[-1])
+    # the graph launches in each kept chunk's profiler step (host clock)
+    steps = sorted({(e.time_range.start, e.time_range.end) for e in events
+                    if e.name.startswith("ProfilerStep")
+                    and e.device_type != torch.autograd.DeviceType.CUDA})
+    launches = [sum(1 for e in events if e.name.startswith("cudaGraphLaunch")
+                    and start <= e.time_range.start <= end)
+                for start, end in steps[-3:-1]]
+    return {"graph launches": launches,
+            "on the card": {part: sum(c for name, c in kernels.items()
+                                      if key in name)
+                            for part, (key, _, _) in
+                            TRAIN_STEP_KERNELS.items()},
+            "counted": counted,
+            "busy": busy / k,
+            "per kernel": {name: ms / k for name, ms in per_kernel.items()}}
+
+
+def check_chunked_fit(dev, seed, data):
+    """Phase 4t's chunked-trainer gates on the flagship at TB x 256x256,
+    returning a replayed step's device busy ms and ms by kernel name:
+    fit's chunked trainer (the set resident) against its per-step trainer
+    (DEVICE_FEED_BUDGET_BYTES = 0) over CHUNK_RUN_STEPS steps with a
+    checkpoint every CHUNK_CKPT_STEPS (the same snapshots, params within
+    1e-6); a resume from the chunked run's first checkpoint against the
+    uninterrupted run (1e-6); then one chunk of TRAIN_CHUNK_STEPS replays
+    traced (trace_replayed_chunk): every training kernel ran on the card its per-step count of times in each replayed
+    step, one graph launch a step, and its wrapper's counter, which the
+    replays advance, says the same."""
+    from reflectance_filtering_tpu_torch.models.networks import NetworkConfig
+    from reflectance_filtering_tpu_torch.train import loop
+    from reflectance_filtering_tpu_torch.train.checkpoint import (
+        Checkpointer, load_checkpoint)
+    flagship = NetworkConfig()
+
+    def run(steps, **kw):
+        return loop.fit(flagship, loop.LossConfig(), data, steps * TB, TB,
+                        random_seed=seed, device=dev, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        states, snaps, times, cks = {}, {}, {}, {}
+        budget = loop.DEVICE_FEED_BUDGET_BYTES
+        for label, feed in (("chunked", budget), ("per-step", 0)):
+            ck = cks[label] = Checkpointer(os.path.join(tmp, label), "smoke",
+                                           interval=CHUNK_CKPT_STEPS * TB)
+            os.makedirs(ck.snapshot_dir)
+            loop.DEVICE_FEED_BUDGET_BYTES = feed
+            try:
+                t0 = time.perf_counter()
+                states[label] = run(CHUNK_RUN_STEPS, checkpointer=ck)
+                times[label] = time.perf_counter() - t0
+            finally:
+                loop.DEVICE_FEED_BUDGET_BYTES = budget
+            snaps[label] = sorted(os.listdir(ck.snapshot_dir))
+        diff = max_param_diff(states["chunked"].params,
+                              states["per-step"].params)
+        print("fit, {} steps, a checkpoint every {}: chunked {:.3f} s, "
+              "per-step (host-fed) {:.3f} s on the host's clock (set-up, "
+              "capture and saves included; not gated); params max|d|="
+              "{:.3e}; snapshots {}".format(
+                  CHUNK_RUN_STEPS, CHUNK_CKPT_STEPS, times["chunked"],
+                  times["per-step"], diff, snaps["chunked"]))
+        check(snaps["chunked"] == snaps["per-step"] == sorted(
+            "smoke_barrista_iter_{}.npz".format(s_ * TB)
+            for s_ in (CHUNK_CKPT_STEPS, 2 * CHUNK_CKPT_STEPS,
+                       CHUNK_RUN_STEPS)),
+              "the chunked and per-step fits save the same snapshots")
+        check(diff <= 1e-6, "the chunked fit equals the per-step fit (params "
+              "within 1e-6)")
+        p0, o0, _ = load_checkpoint(cks["chunked"].path(
+            CHUNK_CKPT_STEPS * TB))
+        resumed = run(CHUNK_RUN_STEPS, init_params=p0, init_opt_state=o0,
+                      base_samples=CHUNK_CKPT_STEPS * TB)
+    rdiff = max_param_diff(resumed.params, states["chunked"].params)
+    print("chunked: resume at step {} against {} uninterrupted steps: params "
+          "max|d|={:.3e}".format(CHUNK_CKPT_STEPS, CHUNK_RUN_STEPS, rdiff))
+    check(resumed.samples == CHUNK_RUN_STEPS * TB and rdiff <= 1e-6,
+          "chunked: checkpoint + resume equals the uninterrupted run (1e-6)")
+
+    traced = trace_replayed_chunk(dev, seed, data)
+    k = loop.TRAIN_CHUNK_STEPS
+    print("one chunk of {} replayed steps under torch.profiler: {} graph "
+          "launches; kernels on the card {}; counted "
+          "by the wrappers {}; device busy {:.4f} ms a step".format(
+              k, traced["graph launches"], traced["on the card"],
+              traced["counted"], traced["busy"]))
+    for part, (_, per_step, _) in TRAIN_STEP_KERNELS.items():
+        check(traced["on the card"][part] == traced["counted"][part]
+              == per_step * k, "{} ran {} times a replayed step (device "
+              "trace), as its wrapper's count says".format(part, per_step))
+    check(traced["graph launches"] == [k] * 2, "one graph launch a "
+          "replayed step")
+    return traced["busy"], traced["per kernel"]
 
 
 def check_network_families(dev, seed):
@@ -1368,6 +1548,7 @@ def main():
         make_synthetic_comps)
     from reflectance_filtering_tpu_torch.scripts import (
         measure_box_guided as box_guided,
+        measure_fit_steady as fit_steady_script,
         measure_k2_table as k2_table, measure_k6_float as k6_float,
         measure_k8 as k8_paths,
         measure_k6_table as k6_table,
@@ -2161,6 +2342,13 @@ def main():
     k7.trunk_forward.tensor_core_launches = 0
     state_k, loss_k = train_run(TRAIN_STEPS)
     train_launches = read_launches("training", train_kernels)
+    per_step = {counter: n for _, n, counter in TRAIN_STEP_KERNELS.values()}
+    check(all(train_launches[counter] == n * TRAIN_STEPS
+              for counter, n in per_step.items()),
+          "fit's chunks (a warm-up step, then replays of the captured step) "
+          "launched each training kernel its per-step count {} times {} "
+          "steps, as counted by the wrappers and the replays".format(
+              per_step, TRAIN_STEPS))
     check(k7.trunk_forward.tensor_core_launches
           == train_launches["cnn_train_fwd"],
           "every training step's K7 forward ran on the tensor cores")
@@ -2187,13 +2375,13 @@ def main():
         fit_ms = (time.perf_counter() - t0) / (TRAIN_STEPS - 10) * 1e3
     print("fit, resumed for 10 steps: {:.3f} ms per step on the host's clock "
           "(the set's upload included; not gated)".format(fit_ms))
-    diff = max((resumed.params[layer][part] - state_k.params[layer][part])
-               .abs().max().item() for layer in state_k.params
-               for part in state_k.params[layer])
+    diff = max_param_diff(resumed.params, state_k.params)
     print("resume at step 10 against 20 uninterrupted steps: params max|d|="
           "{:.3e}".format(diff))
     check(resumed.samples == state_k.samples and diff <= 1e-6,
           "10 steps + checkpoint + resume to 20 equals 20 steps (1e-6)")
+    replay_busy, replay_kernels = check_chunked_fit(dev, args.seed,
+                                                    train_data)
 
     phase("4n. the network families: compute_losses at batch {} x {}x{}, "
           "kernels on and off".format(NET_B, NET_HW, NET_HW))
@@ -2679,6 +2867,11 @@ def main():
                   mp / k5x3_ms[name] * 1e3))
     print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
 
+    phase("6. fit's steady state, the chunked trainer and the per-step one "
+          "in turns (measure_fit_steady.py)")
+    fit_steady = fit_steady_script.measure(dev, args.seed)
+    fit_steady_script.print_table(fit_steady)
+
     phase("6. K8's sort path and quadratic search, in turns, on the training "
           "step's points and beside them")
     k8_paths.print_table(k8_paths.measure(k8_paths.make_inputs(dev,
@@ -2791,18 +2984,47 @@ def main():
         "4K 3x chain": (lambda: guided_filter_iterated(
             g4, s4, GF_R, GF_EPS, CHAIN_ITERS, planar=True), chain_ms["4K"])}
     with torch.no_grad():
+        # why profile_calls traces warm-up calls first: the bf slice's
+        # batches in a session that does not (not gated)
+        from torch.profiler import ProfilerActivity, profile
+        slices["bf"][0]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_BATCHES):
+                slices["bf"][0]()
+            torch.cuda.synchronize()
+        counts = device_spans([
+            (e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)])[2]
+        print("bf slice, a session with no warm-up calls (not gated): {} "
+              "device records; names seen a number of times not a multiple "
+              "of {} batches: {}".format(
+                  sum(counts.values()), PROFILE_BATCHES, {
+                      name[:60]: c for name, c in counts.items()
+                      if c % PROFILE_BATCHES} or "none"))
         for name, (run, wall_ms) in slices.items():
             busy, per_kernel = device_profile(run, PROFILE_BATCHES)
-            if not per_kernel:
-                print("{} slice: the profiler saw no device time".format(
-                    name))
-                continue
             print("{} slice: device busy {:.4f} ms of {:.4f} ms per "
                   "batch (phase 6's CUDA events): idle share {:.2%}"
                   .format(name, busy, wall_ms, 1 - busy / wall_ms))
+            check(busy <= wall_ms * 1.03, "{} slice: the device is busy no "
+                  "longer than the batch's wall time (3% for the two "
+                  "runs' spread)".format(name))
             for kernel, ms in sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1])[:12]:
                 print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
+            if name == "bf":
+                # K2 bounds the bf batch on the card: its trace time is its
+                # CUDA-event time alone (phase 6)
+                k2_trace = sum(ms for kernel, ms in per_kernel.items()
+                               if "bilateral_gray_self_kernel" in kernel)
+                k2_event = times["bilateral_gray_self"][0]
+                check(abs(k2_trace - k2_event) <= 0.05 * k2_event,
+                      "K2 in the bf slice's trace {:.4f} ms within 5% of its "
+                      "CUDA-event time {:.4f} ms".format(k2_trace, k2_event))
     # K4 and K5 split into their kernels, each path and form
     box_guided.print_split(box_guided.profile(dev, args.seed))
     k7_before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
@@ -2813,30 +3035,49 @@ def main():
               (now - was) / (PROFILE_BATCHES + 1) for now, was in zip(
                   (k7.trunk_forward.launches, k7.trunk_backward.launches),
                   k7_before))))
-    if per_kernel:
-        parts = {"K7 forward": ("trunk_fwd",),
-                 "K7 backward + block sum": ("trunk_bwd", "sum_partials"),
-                 "K3 gather": ("whdr_gather_kernel",),
-                 "K8 scatter": ("whdr_scatter",),
-                 "memsets (K8's plane among them)": ("Memset",),
-                 "Adam": ("multi_tensor_apply", "adam", "Adam")}
+    parts = {"K7 forward": ("trunk_fwd",),
+             "K7 backward + block sum": ("trunk_bwd", "sum_partials"),
+             "K3 gather": ("whdr_gather_kernel",),
+             "K8 scatter": ("whdr_scatter",),
+             "memsets (K8's plane among them)": ("Memset",),
+             "Adam": ("multi_tensor_apply", "adam", "Adam")}
+
+    def step_split(kernels):
         part_ms = {part: 0.0 for part in parts}
         part_ms["loss glue (everything else)"] = 0.0
-        for kernel, ms in per_kernel.items():
+        for kernel, ms in kernels.items():
             part = next((p_ for p_, keys in parts.items()
                          if any(key in kernel for key in keys)),
                         "loss glue (everything else)")
             part_ms[part] += ms
-        print("training step: device busy {:.4f} ms of {:.4f} ms per step "
-              "(phase 6's CUDA events): idle share {:.2%}".format(
-                  busy, step_ms, 1 - busy / step_ms))
-        for part, ms in part_ms.items():
-            print("  {:9.4f} ms  {:5.1%}  {}".format(ms, ms / busy, part))
-        for kernel, ms in sorted(per_kernel.items(),
-                                 key=lambda kv: -kv[1])[:12]:
-            print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
-    else:
-        print("training step: the profiler saw no device time")
+        return part_ms
+
+    print("training step: device busy {:.4f} ms of {:.4f} ms per step "
+          "(phase 6's CUDA events): idle share {:.2%}; a replayed step "
+          "of fit's chunk busy {:.4f} ms (phase 4t's trace); each "
+          "part's ms eager, then replayed:".format(
+              busy, step_ms, 1 - busy / step_ms, replay_busy))
+    check(busy <= step_ms * 1.03, "training step: the device is busy no "
+          "longer than the step's wall time (3% for the two runs' spread)")
+    replay_ms = step_split(replay_kernels)
+    for part, ms in step_split(per_kernel).items():
+        print("  {:9.4f} ms  {:5.1%}  {:9.4f} ms  {}".format(
+            ms, ms / busy, replay_ms[part], part))
+    for name, ms in fit_steady["fit"].items():
+        # the resident set trains by replays, the host-fed one eagerly
+        step_busy = replay_busy if name == "resident" else busy
+        print("fit, {} set: {:.4f} ms per step (phase 6) beside the {} "
+              "step's busy {:.4f} ms: idle share {:.2%}".format(
+                  name, ms, "replayed" if name == "resident" else "eager",
+                  step_busy, 1 - step_busy / ms))
+        check(step_busy <= ms * 1.03, "fit, {} set: the device is busy no "
+              "longer than a step (3% for the two runs' spread)".format(name))
+    print("host ms to issue one step (phase 6): eager {:.4f}, replayed "
+          "{:.4f}".format(fit_steady["issue"]["eager step"],
+                          fit_steady["issue"]["replayed step"]))
+    for kernel, ms in sorted(per_kernel.items(),
+                             key=lambda kv: -kv[1])[:12]:
+        print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
 
     # K3 at the serving shape: its device time, and the host's time per
     # wrapper call split into checks, allocation and launch, beside the

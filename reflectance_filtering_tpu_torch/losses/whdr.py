@@ -28,6 +28,7 @@ with ``torch.maximum``, which splits the gradient evenly at a tie as
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -135,12 +136,19 @@ def whdr_batch(reflectance: torch.Tensor, comparisons: torch.Tensor,
     return whdr_per_image(reflectance, comparisons, delta, kernels).mean()
 
 
+@functools.lru_cache(maxsize=16)
+def _ratio_table(ratio: float, k: int, device: torch.device) -> torch.Tensor:
+    """int(np.ceil(ratio * n)) for n = 0..k, an int32 table made once on
+    ``device`` in float64 (numpy's rounding): a training step captured in a
+    CUDA graph copies nothing from the host."""
+    n = torch.arange(k + 1, dtype=torch.float64, device=device)
+    return torch.ceil(ratio * n).to(torch.int32)
+
+
 def _ratio_ceil(num_eval: torch.Tensor, ratio: float, k: int) -> torch.Tensor:
     """Exact reference subsample count int(np.ceil(ratio * n)) in float64
-    (whdr_hinge_loss_layer.py:139-140), from a host table."""
-    table = torch.from_numpy(np.ceil(
-        ratio * np.arange(k + 1, dtype=np.float64)).astype(np.int32))
-    return table.to(num_eval.device)[num_eval.long()]
+    (whdr_hinge_loss_layer.py:139-140), from :func:`_ratio_table`."""
+    return _ratio_table(ratio, k, num_eval.device)[num_eval.long()]
 
 
 def _hinge_per_comparison(y: torch.Tensor, darker: torch.Tensor,

@@ -17,6 +17,8 @@ machine: only a wrapper that was handed a CUDA tensor calls ``lib()``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -224,6 +226,48 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError("{} failed: CUDA error {} ({})".format(
             name, rc, _lib.rf_error_string(rc).decode()))
+
+
+# the tallies of the captures that record_launches() has open, innermost last
+_tallies = []
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def count(fn, attr: str = "launches", n: int = 1) -> None:
+    """Count ``n`` launches of a wrapper's kernel on ``fn.<attr>``, where
+    the wrapper launches it.  A launch inside a CUDA graph capture runs
+    nothing: it goes into the tally of the innermost open
+    :func:`record_launches`, if any, and the graph's replays count it
+    (:func:`count_replays`)."""
+    if _capturing():
+        if _tallies:
+            _tallies[-1][fn, attr] += n
+        return
+    setattr(fn, attr, getattr(fn, attr) + n)
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around a CUDA graph capture: yields the tally of the launches
+    captured, {(fn, attr): n}."""
+    tally = collections.Counter()
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)
+
+
+def count_replays(tally, replays: int) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded
+    ``tally``."""
+    for (fn, attr), n in tally.items():
+        setattr(fn, attr, getattr(fn, attr) + n * replays)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

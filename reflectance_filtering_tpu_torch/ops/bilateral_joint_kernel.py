@@ -296,7 +296,7 @@ def _filter(wrapper, joint, src, self_guided, u8, d, sigma_color,
                       src.data_ptr(), out.data_ptr(), tables.data_ptr(), n,
                       cj, cs, h, w, int(self_guided), int(u8), radius,
                       coeff, gsc)
-        wrapper.launches += 1
+        _build.count(wrapper)
     return out
 
 

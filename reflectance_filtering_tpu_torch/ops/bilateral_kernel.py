@@ -175,7 +175,7 @@ def _bilateral_gray_self_op(x: torch.Tensor, d: int, sigma_color: float,
                       out.data_ptr(), tables.data_ptr() if u8 else None,
                       n, h, w, int(u8), radius, gcc * float(reps * reps),
                       gsc)
-        bilateral_gray_self.launches += 1
+        _build.count(bilateral_gray_self)
     return out
 
 

@@ -101,9 +101,9 @@ def box_filter_planar(x: torch.Tensor, radius: int, border: str = "reflect",
                       None if scratch is None else scratch.data_ptr(), b, h,
                       w, radius, int(border == "reflect101"), int(normalize),
                       PATHS[path], band)
-        box_filter_planar.launches += 1
+        _build.count(box_filter_planar)
         if fused:
-            box_filter_planar.fused_launches += 1
+            _build.count(box_filter_planar, "fused_launches")
     return out
 
 

@@ -84,7 +84,7 @@ def _cnn_fwd(x: torch.Tensor, weights: torch.Tensor,
         _build.launch("rf_cnn_fwd", x.device, x.data_ptr(),
                       weights.data_ptr(), out.data_ptr(), b, hw,
                       int(bool(srgb_input)))
-        reflectance_cnn.launches += 1
+        _build.count(reflectance_cnn)
     return out
 
 

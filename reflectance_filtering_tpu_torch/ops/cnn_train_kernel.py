@@ -210,9 +210,9 @@ def trunk_forward(x: torch.Tensor, flat: torch.Tensor,
         _build.launch("rf_cnn_train_fwd", x.device, x.data_ptr(),
                       flat.data_ptr(), pre.data_ptr(), n, ci, f, cout,
                       x.shape[0])
-        trunk_forward.launches += 1
-        trunk_forward.tensor_core_launches += int(
-            forward_on_tensor_cores(shape))
+        _build.count(trunk_forward)
+        _build.count(trunk_forward, "tensor_core_launches",
+                     int(forward_on_tensor_cores(shape)))
     return pre
 
 
@@ -261,8 +261,8 @@ def trunk_backward(x: torch.Tensor, g: torch.Tensor, flat: torch.Tensor,
                   flat.data_ptr(), grad.data_ptr(),
                   dx.data_ptr() if input_grad else None, work.data_ptr(),
                   *shape, p, work.shape[0])
-    trunk_backward.launches += 1
-    trunk_backward.dx_launches += int(input_grad)
+    _build.count(trunk_backward)
+    _build.count(trunk_backward, "dx_launches", int(input_grad))
     return grad, dx
 
 
@@ -397,7 +397,7 @@ def trunk_backward_variant(x: torch.Tensor, g: torch.Tensor,
                   g.data_ptr(), flat.data_ptr(), grad.data_ptr(),
                   work.data_ptr(), *shape, x.shape[0], work.shape[0],
                   0 if sum_only else BWD_MASKS[variant], int(sum_only))
-    trunk_backward_variant.launches += 1
+    _build.count(trunk_backward_variant)
     return grad
 
 

@@ -92,7 +92,7 @@ def guide_stats(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
         _build.launch("rf_guide_stats", guide.device, guide.data_ptr(),
                       stats.data_ptr(), mom.data_ptr(), n, h, w, radius,
                       float(eps))
-        guide_stats.launches += 1
+        _build.count(guide_stats)
     return stats
 
 
@@ -125,7 +125,7 @@ def guided_apply_cached(stats: torch.Tensor, guide: torch.Tensor,
                       guide.data_ptr(), s.data_ptr(), o.data_ptr(),
                       mom.data_ptr(), ab.data_ptr(), n, s.shape[1], h, w,
                       radius)
-        guided_apply_cached.launches += 1
+        _build.count(guided_apply_cached)
 
     return by_channel_groups(src, launch)
 

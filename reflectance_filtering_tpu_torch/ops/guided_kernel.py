@@ -242,9 +242,9 @@ def _guided_filter_op(guide: torch.Tensor, src: torch.Tensor, radius: int,
                       None if mom is None else mom.data_ptr(), ab.data_ptr(),
                       n, s.shape[1], h, w, radius, float(eps), PATHS[path],
                       band)
-        guided_filter_fused.launches += 1
+        _build.count(guided_filter_fused)
         if fused_path(s.shape[1], w, path):
-            guided_filter_fused.fused_launches += 1
+            _build.count(guided_filter_fused, "fused_launches")
 
     return by_channel_groups(src, launch)
 

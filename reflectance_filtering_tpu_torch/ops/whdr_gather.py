@@ -103,7 +103,7 @@ def _gather(plane: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
                       idx[0].data_ptr(), idx[1].data_ptr(),
                       idx[2].data_ptr(), idx[3].data_ptr(), ptr,
                       ptr + 4 * b * k, b, h, w, k)
-        gather_pairs.launches += 1
+        _build.count(gather_pairs)
     return out.unbind(0)
 
 
@@ -118,7 +118,7 @@ def _scatter(shape: Sequence[int], tensors, entry: str) -> torch.Tensor:
     if out.numel():
         _build.launch(entry, g1.device, *(t.data_ptr() for t in tensors),
                       out.data_ptr(), b, h, w, tensors[0].shape[1])
-        scatter_pairs.launches += 1
+        _build.count(scatter_pairs)
     return out
 
 

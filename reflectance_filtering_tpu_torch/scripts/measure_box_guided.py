@@ -83,21 +83,13 @@ def in_turns(fns: Dict[str, Callable], iters: int = ITERS,
 
 def kernel_ms(fn: Callable, calls: int = 5) -> Dict[str, float]:
     """Device ms per call of each kernel that fn() launches, from
-    torch.profiler over ``calls`` calls after one warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    torch.profiler over ``calls`` calls (``utils.profiling.profile_calls``,
+    after its warm-up calls)."""
+    from ..utils.profiling import profile_calls
     out: Dict[str, float] = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            out[e.name] = out.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / calls / 1e3
+    for call in profile_calls(fn, calls)[0]:
+        for name, start, end in call:
+            out[name] = out.get(name, 0.0) + (end - start) / calls / 1e3
     return out
 
 

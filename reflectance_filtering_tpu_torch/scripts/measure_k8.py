@@ -29,6 +29,7 @@ from typing import Dict
 import torch
 
 from ..ops.whdr_gather import _scatter_quadratic, scatter_pairs
+from ..utils.profiling import profile_calls
 
 # name -> (images, height, width, K, half of the points in a 12x12 corner)
 CASES = {"training step": (20, 256, 256, 1181, False),
@@ -72,22 +73,13 @@ def _ms(fn) -> float:
 
 def _device_ms(fn) -> Dict[str, float]:
     """{"kernel": ms, "memset": ms} per call from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_CALLS):
-            fn()
-        torch.cuda.synchronize()
     out = {"kernel": 0.0, "memset": 0.0}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        part = ("kernel" if "whdr_scatter" in e.name
-                else "memset" if "Memset" in e.name else None)
-        if part:
-            out[part] += (e.time_range.end - e.time_range.start) / 1e3
+    for call in profile_calls(fn, PROFILE_CALLS)[0]:
+        for name, start, end in call:
+            part = ("kernel" if "whdr_scatter" in name
+                    else "memset" if "Memset" in name else None)
+            if part:
+                out[part] += (end - start) / 1e3
     return {part: ms / PROFILE_CALLS for part, ms in out.items()}
 
 

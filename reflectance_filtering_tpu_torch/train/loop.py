@@ -5,6 +5,9 @@ One step is forward (the network trunk -> R/S recovery -> losses), backward
 CUDA) and the optimizer update; the host feeds batches and observes scalar
 metrics.  Unlike the JAX package, parameters are updated in place
 (``torch.optim``), so a snapshot is written before the next step runs.
+Over a set resident on the card, fit() runs chunks of TRAIN_CHUNK_STEPS
+steps, each step a replay of one captured CUDA graph, and the host waits
+once a chunk (:func:`make_train_chunk`, the JAX package's scan chunks).
 
 Loss graph wiring mirrors the reference's training/networks.py:222-301:
   * whdr hinge on the configured comparisons type, weight loss_scale_whdr;
@@ -24,6 +27,7 @@ through the training set in order; ``iterations`` counts samples.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +40,7 @@ from ..losses.whdr import (MAX_EVALUATED_COMPARISONS, parse_wdm_string,
 from ..models.networks import (NetworkConfig, apply_network, init_network,
                                params_to_torch, update_bn_stats)
 from ..models.recover import recover_reflectance_shading
+from ..ops import _build
 
 
 @dataclasses.dataclass
@@ -71,6 +76,19 @@ DEVICE_FEED_BUDGET_BYTES = 8 * 1024 ** 3
 # Device-residency cap for the live-validation split (make_val_whdr_fn).
 VAL_FEED_BUDGET_BYTES = 2 * 1024 ** 3
 
+# Steps a chunk of fit()'s device-resident trainer runs (the JAX package's
+# value).  Large enough to amortize the per-chunk host round trip (one copy
+# of the stacked metrics, one wait), small enough that checkpoint-boundary
+# remainder chunks stay few.  Each step of a chunk replays the same captured
+# graph, so unlike the JAX scan a new chunk length costs no compile.
+TRAIN_CHUNK_STEPS = 32
+
+# Eager steps that make_train_chunk runs on a card, on a side stream, before
+# it captures the step: one step creates every lazily made thing (Adam's
+# state, K7's launch plan and its library's per-device cache, the hinge's
+# ratio table) outside the capture.  It is a step of the trajectory.
+CAPTURE_WARMUP_STEPS = 1
+
 
 def param_leaves(params: Dict) -> List[torch.Tensor]:
     """The parameter tensors in the JAX package's flattening order (layers
@@ -86,8 +104,12 @@ def make_optimizer(solver_type: str, base_lr: float,
     if solver_type in ("SGD", "sgd"):
         return torch.optim.SGD(leaves, lr=base_lr)
     if solver_type in ("ADAM", "Adam", "adam"):
+        # capturable on a card: the step count and the bias correction stay
+        # on the device (float32, as optax computes them), so that
+        # make_train_chunk can capture the update; the per-step trainer
+        # steps the same optimizer
         return torch.optim.Adam(leaves, lr=base_lr, betas=(0.9, 0.999),
-                                eps=1e-8)
+                                eps=1e-8, capturable=leaves[0].is_cuda)
     raise ValueError("solverType not known: {}".format(solver_type))
 
 
@@ -116,14 +138,18 @@ def optimizer_state(optimizer: torch.optim.Optimizer,
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, params: Dict,
                          opt_state: Dict) -> None:
-    """Put a checkpoint's Adam state into ``optimizer`` (over ``params``)."""
+    """Put a checkpoint's Adam state into ``optimizer`` (over ``params``).
+    A capturable Adam keeps its step count on the params' device, the other
+    on the CPU."""
     if not isinstance(optimizer, torch.optim.Adam):
         return
+    capturable = optimizer.defaults["capturable"]
     for layer in params:
         for part, t in params[layer].items():
             optimizer.state[t] = {
                 "step": torch.tensor(float(opt_state["count"]),
-                                     dtype=torch.float32),
+                                     dtype=torch.float32,
+                                     device=t.device if capturable else None),
                 "exp_avg": torch.tensor(np.asarray(
                     opt_state["mu"][layer][part], np.float32),
                     device=t.device),
@@ -292,6 +318,145 @@ def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
                            preselected, kernels)
 
 
+def make_train_chunk(net_cfg: NetworkConfig, loss_cfg: LossConfig,
+                     params: Dict, optimizer: torch.optim.Optimizer,
+                     images_v: torch.Tensor, comps_v: torch.Tensor,
+                     metric_v: torch.Tensor, batch_size: int,
+                     kernels: bool = True) -> Callable:
+    """Chunked trainer over a device-resident set (the JAX package's
+    ``make_train_chunk``): ``images_v``/``comps_v``/``metric_v`` on one
+    device, wrap-padded by batch_size - 1 rows (``metric_v`` may be
+    ``comps_v``), so the true length is rows - (batch_size - 1).
+
+    Returns chunk(step0, cursor0, k) -> stacked: k consecutive steps over
+    ``params`` (updated in place, as by :func:`make_train_step`), step j on
+    rows cursor0 + j * batch_size (mod the length) onwards, as the per-step
+    trainer's batches; ``stacked`` is a [k, M] float32 tensor on the device,
+    each step's metrics in the order of ``chunk.keys`` (sorted, set by the
+    first step).  k is at most TRAIN_CHUNK_STEPS; ``step0``, the global step
+    of the chunk's first step, names a failed capture.
+
+    The tensors' device sets the path.  On a card the first
+    CAPTURE_WARMUP_STEPS steps run eagerly on a side stream, then the step is
+    captured once as a CUDA graph, and every later step is one replay: the
+    graph gathers its batch from the resident set at a cursor on the device,
+    which it advances, and writes its metrics into row j of a device buffer,
+    so the host issues one replay a step and reads nothing back.  The
+    kernels' wrappers record their launches in the capture, and every
+    replay counts them (``_build.count_replays``).  The graph is captured
+    again only when the parameter or optimizer-state tensors change
+    identity (:func:`load_optimizer_state`).  A failed capture raises; it
+    never falls back to eager steps.  On the CPU the same step runs eagerly
+    k times."""
+    body = _make_step_body(net_cfg, loss_cfg, params, optimizer,
+                           kernels=kernels)
+    device = images_v.device
+    n = images_v.shape[0] - (batch_size - 1)
+    offsets = torch.arange(batch_size, device=device)
+    cursor = torch.zeros(1, dtype=torch.int64, device=device)
+    row = torch.zeros(1, dtype=torch.int64, device=device)
+    # the metrics' keys and buffer (made by the first step), the graph, the
+    # tensors it updates in place, and the warm-up steps still to run.  No
+    # closure here refers to ``chunk``: with no reference cycle the graph
+    # and its memory go when the caller drops ``chunk``, not at a garbage
+    # collection that could fall inside a later capture.
+    keys = []
+    state = {"out": None, "graph": None, "captured": [], "tally": None,
+             "warmup": CAPTURE_WARMUP_STEPS}
+
+    def one_step():
+        idx = cursor + offsets
+        b_comps = comps_v.index_select(0, idx)
+        b_metric = (b_comps if metric_v is comps_v
+                    else metric_v.index_select(0, idx))
+        metrics = body(images_v.index_select(0, idx), b_comps, None,
+                       b_metric)
+        if not keys:
+            keys.extend(sorted(metrics))
+            state["out"] = torch.empty((TRAIN_CHUNK_STEPS, len(keys)),
+                                       device=device)
+        state["out"].index_copy_(0, row, torch.stack(
+            [metrics[key].to(torch.float32) for key in keys])[None])
+        row.add_(1)
+        cursor.add_(batch_size).remainder_(n)
+
+    def in_place_tensors():
+        """The tensors a captured step updates in place: every parameter
+        and its optimizer state."""
+        out = []
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                out.append(p)
+                out.extend(v for v in optimizer.state.get(p, {}).values()
+                           if isinstance(v, torch.Tensor))
+        return out
+
+    def replay(step, count):
+        now = in_place_tensors()
+        if (state["graph"] is None or len(now) != len(state["captured"])
+                or any(a is not b for a, b in zip(now, state["captured"]))):
+            # a CUDA object that cyclic garbage holds (another graph, an
+            # event) must not be destroyed inside the capture, which that
+            # would invalidate: collect it first
+            gc.collect()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with _build.record_launches() as tally, \
+                        torch.cuda.graph(graph):
+                    one_step()
+            except RuntimeError as exc:   # CUDA's and the launches' errors
+                raise RuntimeError(
+                    "capturing the training step (global step {}) as a CUDA "
+                    "graph failed: {}".format(step, exc)) from exc
+            state["graph"], state["captured"] = graph, now
+            state["tally"] = tally
+        for _ in range(count):
+            state["graph"].replay()
+        _build.count_replays(state["tally"], count)
+
+    def chunk(step0: int, cursor0: int, k: int) -> torch.Tensor:
+        if not 1 <= k <= TRAIN_CHUNK_STEPS:
+            raise ValueError("a chunk runs 1..{} steps, got {}".format(
+                TRAIN_CHUNK_STEPS, k))
+        cursor.fill_(cursor0)
+        row.zero_()
+        if device.type == "cpu":
+            for _ in range(k):
+                one_step()
+            return state["out"][:k]
+        with torch.cuda.device(device):
+            warm = min(k, state["warmup"])
+            if warm:
+                main = torch.cuda.current_stream()
+                side = torch.cuda.Stream()
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    for _ in range(warm):
+                        one_step()
+                main.wait_stream(side)
+                state["warmup"] -= warm
+            if warm < k:
+                replay(step0 + warm, k - warm)
+        return state["out"][:k]
+
+    chunk.keys = keys
+    return chunk
+
+
+def _drain_chunk(pending, fan_out_metrics, maybe_checkpoint,
+                 batch_size: int) -> None:
+    """Host side of one dispatched chunk: ONE wait for its stacked metrics,
+    then each step's metrics to the callbacks in order, then the checkpoint
+    due at its last step."""
+    step0, k, samples0, keys, (host, event) = pending
+    if event is not None:
+        event.synchronize()
+    for j, values in enumerate(host.tolist()):
+        fan_out_metrics(step0 + j, samples0 + (j + 1) * batch_size,
+                        dict(zip(keys, values)))
+    maybe_checkpoint(samples0 + k * batch_size)
+
+
 def make_val_whdr_fn(net_cfg: NetworkConfig, X_val: Dict,
                      batch_size: int = 20, device="cuda"
                      ) -> Optional[Callable]:
@@ -330,10 +495,12 @@ def make_val_whdr_fn(net_cfg: NetworkConfig, X_val: Dict,
 
 
 def _to_host(values: torch.Tensor):
-    """Start copying a step's metrics to the host without waiting for later
-    work on the stream: (host tensor, event or None)."""
+    """Start copying a step's or a chunk's metrics to the host without
+    waiting for later work on the stream: (host tensor, event or None).
+    ``values`` may be overwritten by the next dispatch (a chunk's buffer):
+    on a card the copy is queued before it, on the CPU it is made now."""
     if values.device.type != "cuda":
-        return values, None
+        return values.clone(), None
     host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
     host.copy_(values, non_blocking=True)
     event = torch.cuda.Event()
@@ -358,10 +525,16 @@ def fit(net_cfg: NetworkConfig, loss_cfg: LossConfig, X: Dict,
     X: {'images' [N,H,W,3], 'comparisons' [N,K+1,6][, 'augmented']} — the
     loader's NHWC layout.  Batch s takes rows (cursor + arange(bs)) % N with
     cursor = (base_samples + s * bs) % N.  When the training set fits
-    DEVICE_FEED_BUDGET_BYTES it is uploaded once (wrap-padded by bs - 1
-    rows) and each batch is a slice of it on the card.  Hinge blobs with
-    K > 1500 are selected on the host (select_comparisons_host) with
-    ``np.random.RandomState([seed & 0x7fffffff, global_step])``.
+    DEVICE_FEED_BUDGET_BYTES and N >= bs it is uploaded once (wrap-padded
+    by bs - 1 rows) and each batch is rows of it on the device.  Hinge blobs
+    with K > 1500 are selected on the host (select_comparisons_host) with
+    ``np.random.RandomState([seed & 0x7fffffff, global_step])``, a step at
+    a time.  Otherwise (the JAX package's condition) a resident set trains
+    in chunks of up to TRAIN_CHUNK_STEPS steps (:func:`make_train_chunk`:
+    on a card each step a replay of one captured CUDA graph, one host wait
+    a chunk), the chunk ends aligned so that every checkpoint falls on the
+    last step of its chunk; the values, batches, checkpoints and callback
+    order are the per-step trainer's.
 
     Resume: pass ``init_params``/``init_opt_state`` from a checkpoint plus
     ``base_samples``; the data cursor, checkpoint numbering and the host
@@ -374,7 +547,8 @@ def fit(net_cfg: NetworkConfig, loss_cfg: LossConfig, X: Dict,
     WHDR follow the JAX package's order: each step's metrics go to the
     callbacks, then a checkpoint due at that step is written and evaluated,
     and later steps carry its 'val_whdr'.  ``kernels=False`` trains
-    through the plain versions of the trunk and the gather on any device."""
+    through the plain versions of the trunk and the gather on any device
+    (on a card the chunked trainer captures those in its graph)."""
     device = torch.device(device)
     seed = random_seed if random_seed >= 0 else np.random.randint(2 ** 31)
     if init_params is None:
@@ -426,8 +600,6 @@ def fit(net_cfg: NetworkConfig, loss_cfg: LossConfig, X: Dict,
                          dtype=np.uint32))
             b_comps = torch.from_numpy(select_comparisons_host(
                 comps[idx], sel_ratio, sel_dense, sel_rng)).to(device)
-        elif resident:
-            b_comps = comps_d[start:start + batch_size]
         else:
             b_comps = torch.from_numpy(comps[idx]).to(device)
         if resident:
@@ -458,40 +630,65 @@ def fit(net_cfg: NetworkConfig, loss_cfg: LossConfig, X: Dict,
         if on_checkpoint is not None:
             on_checkpoint(samples, params)
 
-    def drain(pending):
-        s_global, samples, keys, (host, event) = pending
-        if event is not None:
-            event.synchronize()
-        fan_out_metrics(s_global, samples,
-                        {k: float(v) for k, v in zip(keys, host.tolist())})
+    def save_due(samples):
+        return checkpointer is not None and checkpointer.would_save(
+            samples, prev=samples - batch_size)
 
-    # A step's metrics reach the host while the next step runs: their copy
-    # is queued right after the step, and the fan-out waits only for it.
-    # A step that saves a checkpoint is drained at once, before the next
-    # step updates the params in place.
-    pending = None
-    samples = base_samples
-    for s in range(num_steps):
-        b_images, b_comps, b_metric = batch(s)
-        metrics = step_fn(b_images, b_comps, None, b_metric)
-        prev, samples = samples, base_samples + (s + 1) * batch_size
-        keys = sorted(metrics)
-        ready = (base_steps + s, samples, keys, _to_host(
-            torch.stack([metrics[k].to(torch.float32) for k in keys])))
-        if pending is not None:
-            drain(pending)
-        pending = ready
-        if (checkpointer is not None
-                and checkpointer.would_save(samples, prev=prev)):
-            drain(pending)
-            pending = None
-            saved = checkpointer.maybe_save(
+    def maybe_checkpoint(samples):
+        if save_due(samples) and checkpointer.maybe_save(
                 samples, params, optimizer_state(optimizer, params),
-                prev=prev)
-            if saved:
-                on_saved(samples)
+                prev=samples - batch_size):
+            on_saved(samples)
+
+    if resident and not host_select:
+        # the JAX package's condition: k steps a chunk on the card, chunk
+        # ends aligned so that every checkpoint step is the LAST step of
+        # its chunk
+        chunk_fn = make_train_chunk(net_cfg, loss_cfg, params, optimizer,
+                                    images_d, comps_d, metric_d, batch_size,
+                                    kernels=kernels)
+
+        def chunk_len(s):
+            limit = min(s + TRAIN_CHUNK_STEPS, num_steps)
+            return next((j - s + 1 for j in range(s, limit)
+                         if save_due(base_samples + (j + 1) * batch_size)),
+                        limit - s)
+
+        def dispatch(s):
+            k = chunk_len(s)
+            stacked = chunk_fn(base_steps + s,
+                               (base_samples + s * batch_size) % n, k)
+            return k, chunk_fn.keys, stacked
+    else:
+        def dispatch(s):
+            b_images, b_comps, b_metric = batch(s)
+            metrics = step_fn(b_images, b_comps, None, b_metric)
+            keys = sorted(metrics)
+            return 1, keys, torch.stack(
+                [metrics[key].to(torch.float32) for key in keys])[None]
+
+    # A chunk's (or a step's) metrics reach the host while the next one
+    # runs: their copy is queued right after it, and the fan-out waits only
+    # for it.  One that ends at a checkpoint is drained, saved and
+    # evaluated at once, before the next updates the params in place.
+    pending = None
+    s = 0
+    while s < num_steps:
+        k, keys, stacked = dispatch(s)
+        ready = (base_steps + s, k, base_samples + s * batch_size, keys,
+                 _to_host(stacked))
+        if pending is not None:
+            _drain_chunk(pending, fan_out_metrics, maybe_checkpoint,
+                         batch_size)
+        pending = ready
+        s += k
+        if save_due(base_samples + s * batch_size):
+            _drain_chunk(pending, fan_out_metrics, maybe_checkpoint,
+                         batch_size)
+            pending = None
     if pending is not None:
-        drain(pending)
+        _drain_chunk(pending, fan_out_metrics, maybe_checkpoint, batch_size)
+    samples = base_samples + num_steps * batch_size
     if checkpointer is not None and num_steps > 0:
         saved = checkpointer.maybe_save(
             samples, params, optimizer_state(optimizer, params),

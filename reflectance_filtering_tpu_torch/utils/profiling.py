@@ -21,7 +21,7 @@ import contextlib
 import os
 import time
 import timeit
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 
 class Span:
@@ -62,6 +62,68 @@ def device_trace(log_dir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace_{}_{}.json".format(
         os.getpid(), time.time_ns())))
+
+
+# Calls a profile traces and discards before the calls it keeps.  On an
+# H100 a torch.profiler session lost the first records of its window (6-14
+# once the process had loaded and run the port's kernels, none in a fresh
+# process, warm-up steps or not): the loss falls on calls run before the
+# kept ones, more of them at each new attempt.
+PROFILE_WARMUP_CALLS = 3
+PROFILE_LEAD_CALLS = (2, 8, 32)
+# the kernel that starts each call on the card's timeline
+# (torch.cuda._sleep), so calls are told apart by the card's clock alone
+MARKER = "spin_kernel"
+
+
+def profile_calls(fn: Callable[[], object], calls: int):
+    """The device events of ``calls`` calls of fn() on the card, from
+    ``torch.profiler`` with a schedule: PROFILE_WARMUP_CALLS calls traced
+    and discarded, then lead calls, the kept calls and one more, each after a
+    marker kernel and followed by a synchronize, so that a call's events
+    are those between its marker and the next on the card's timeline.
+    Returns (one list per kept call of (name, start µs, end µs): its
+    kernels, copies and memsets, user annotations left out; the profile's
+    events).  Every call runs the same kernels, so a profile whose kept
+    calls hold different names or counts lost records: it is taken again
+    with more lead calls (PROFILE_LEAD_CALLS), and then raises
+    RuntimeError."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warmup = PROFILE_WARMUP_CALLS
+    for lead in PROFILE_LEAD_CALLS:
+        active = lead + calls + 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warmup,
+                                       active=active, repeat=1)) as prof:
+            for _ in range(warmup + active):
+                torch.cuda._sleep(1)
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = prof.events()
+        groups = []
+        for start, end, name in sorted(
+                (e.time_range.start, e.time_range.end, e.name)
+                for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            if MARKER in name:
+                groups.append([])
+            elif groups:
+                groups[-1].append((name, start, end))
+        per_call = groups[-calls - 1:-1]
+        kinds = {tuple(sorted(name for name, _, _ in call))
+                 for call in per_call}
+        if len(per_call) == calls and len(kinds) == 1 and per_call[0]:
+            return per_call, events
+    raise RuntimeError(
+        "torch.profiler lost device records in {} profiles of {} calls "
+        "(the kept calls' kernels differ; the last profile's calls held {} "
+        "records)".format(len(PROFILE_LEAD_CALLS), calls,
+                          [len(c) for c in groups]))
 
 
 def write_rate_artifact(path: str, num_items: int, seconds: float):

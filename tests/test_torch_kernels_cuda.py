@@ -1108,3 +1108,119 @@ def test_ops_launch_the_kernels_and_match_plain(dev):
         assert wrapper.launches == before + 1
         assert torch.equal(got, via_wrapper())
         assert (got - plain()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("solver,kernels", [("ADAM", True), ("SGD", True),
+                                            ("ADAM", False)])
+def test_train_chunk_replays_match_eager_steps(dev, solver, kernels):
+    """make_train_chunk on the card (CAPTURE_WARMUP_STEPS eager steps, one
+    capture, the rest replays of the graph) against the same 39 steps run
+    eagerly by make_train_step on the same rows: a chunk of
+    TRAIN_CHUNK_STEPS from cursor 5, then one of 7 (all replays), the
+    flagship at 8 x 64x64, K = 1181, 12 images (the batches wrap).  Params
+    and every step's metrics within 1e-6 (bitwise where the kernels and
+    torch's reductions repeat); capturable Adam, SGD as it is, and the
+    plain versions (kernels=False) all capture.  The wrappers' counts follow
+    the launches: one K7 forward and backward, two K3 and one K8 a step,
+    whether the step ran eagerly or as a replay, none in the capture."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.train import loop
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps)
+    cfg, lcfg, n, bs = NetworkConfig(), loop.LossConfig(), 12, 8
+    rng = np.random.RandomState(4)
+    images = rng.rand(n, 64, 64, 3).astype(np.float32) * 0.8 + 0.1
+    comps = make_synthetic_comps(5, 1181, batch=n)
+    im_d, cp_d = (torch.from_numpy(np.concatenate([a, a[:bs - 1]])).to(dev)
+                  for a in (images, comps))
+    init = init_network(cfg, torch.Generator().manual_seed(6))
+    pa, pb = loop.trainable(init, dev), loop.trainable(init, dev)
+    chunk = loop.make_train_chunk(cfg, lcfg, pa, loop.make_optimizer(
+        solver, 1e-3, pa), im_d, cp_d, cp_d, bs, kernels=kernels)
+    step = loop.make_train_step(cfg, lcfg, pb, loop.make_optimizer(
+        solver, 1e-3, pb), kernels=kernels)
+    cursor, stacked, eager = 5, [], []
+    wrappers = (k7.trunk_forward, k7.trunk_backward, gather_pairs,
+                scatter_pairs)
+    before = [fn.launches for fn in wrappers]
+    for k in (loop.TRAIN_CHUNK_STEPS, 7):
+        stacked.append(chunk(0, cursor, k).cpu())
+        cursor = (cursor + k * bs) % n
+    steps = loop.TRAIN_CHUNK_STEPS + 7
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == (
+        [steps, steps, 2 * steps, steps] if kernels else [0, 0, 0, 0])
+    cursor = 5
+    for _ in range(loop.TRAIN_CHUNK_STEPS + 7):
+        met = step(im_d[cursor:cursor + bs], cp_d[cursor:cursor + bs])
+        eager.append([met[key].item() for key in chunk.keys])
+        cursor = (cursor + bs) % n
+    got = torch.cat(stacked).numpy()
+    np.testing.assert_allclose(got, np.array(eager, np.float32), rtol=1e-6,
+                               atol=1e-7)
+    for layer in pb:
+        for part in pb[layer]:
+            d = (pa[layer][part] - pb[layer][part]).abs().max().item()
+            assert d <= 1e-6, (layer, part, d)
+
+
+def test_train_chunk_recaptures_when_state_tensors_change(dev):
+    """make_train_chunk captures its step once, and again only when the
+    optimizer's state tensors are replaced (load_optimizer_state with the
+    same values): K7's forward wrapper counts one launch a step in each
+    chunk, the warm-up step's, the replays' and none for either capture;
+    the params stay make_train_step's (1e-6)."""
+    from reflectance_filtering_tpu_torch.models.networks import (
+        NetworkConfig, init_network)
+    from reflectance_filtering_tpu_torch.train import loop
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps)
+    cfg, lcfg, n, bs = NetworkConfig(), loop.LossConfig(), 6, 4
+    rng = np.random.RandomState(8)
+    im_d, cp_d = (torch.from_numpy(np.concatenate([a, a[:bs - 1]])).to(dev)
+                  for a in (rng.rand(n, 32, 32, 3).astype(np.float32),
+                            make_synthetic_comps(9, 300, batch=n)))
+    init = init_network(cfg, torch.Generator().manual_seed(2))
+    pa, pb = loop.trainable(init, dev), loop.trainable(init, dev)
+    opt_a = loop.make_optimizer("ADAM", 1e-3, pa)
+    opt_b = loop.make_optimizer("ADAM", 1e-3, pb)
+    chunk = loop.make_train_chunk(cfg, lcfg, pa, opt_a, im_d, cp_d, cp_d, bs)
+    step = loop.make_train_step(cfg, lcfg, pb, opt_b)
+    cursor, counts = 0, []
+    for k, reload in ((5, False), (3, False), (3, True)):
+        if reload:
+            for params, opt in ((pa, opt_a), (pb, opt_b)):
+                loop.load_optimizer_state(opt, params,
+                                          loop.optimizer_state(opt, params))
+        before = k7.trunk_forward.launches
+        chunk(0, cursor, k)
+        counts.append(k7.trunk_forward.launches - before)
+        for _ in range(k):
+            step(im_d[cursor:cursor + bs], cp_d[cursor:cursor + bs])
+            cursor = (cursor + bs) % n
+    assert counts == [5, 3, 3]
+    for layer in pb:
+        for part in pb[layer]:
+            d = (pa[layer][part] - pb[layer][part]).abs().max().item()
+            assert d <= 1e-6, (layer, part, d)
+
+
+def test_k8_sort_path_captures_in_a_graph(dev):
+    """K8's sort path at 64-bit keys and K = 2048 (a block's shared memory
+    above 48 KB, so every launch sets the kernel's attribute) captured in a
+    CUDA graph: the replay is bitwise the eager launch."""
+    b, side, k = 1, 1024, 2048
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = [torch.randint(0, side, (b, k), device=dev, generator=gen,
+                         dtype=torch.int32) for _ in range(4)]
+    g = [torch.randn(b, k, device=dev, generator=gen) for _ in range(2)]
+    exp = scatter_pairs((b, side, side), *idx, *g)
+    graph = torch.cuda.CUDAGraph()
+    before = scatter_pairs.launches
+    with torch.cuda.graph(graph):
+        out = scatter_pairs((b, side, side), *idx, *g)
+    assert scatter_pairs.launches == before    # a capture runs nothing
+    out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, exp)

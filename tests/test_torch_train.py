@@ -484,3 +484,302 @@ def test_loader_matches_jax(tmp_path, rng):
     assert a["images"].shape == (3, 4, 5, 3)
     with pytest.raises(IOError):
         get_data("iiw", "missing", root=str(tmp_path))
+
+
+# ---------------------------------------------------------------------------
+# fit's chunked trainer (make_train_chunk) against its per-step trainer and
+# the JAX package's chunked fit
+# ---------------------------------------------------------------------------
+
+CHUNK_CFG = dict(SKIP, num_layers=2, num_filters_log=3,
+                 rs_est_mode="rDirectly")
+
+
+@pytest.fixture
+def chunk_spy(monkeypatch):
+    """Counts fit's make_train_chunk calls (which trainer ran)."""
+    calls = []
+    real = tloop.make_train_chunk
+
+    def spy(*args, **kw):
+        calls.append(args[-1])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tloop, "make_train_chunk", spy)
+    return calls
+
+
+def _per_step(monkeypatch, fn):
+    """fn() with fit forced onto its per-step trainer (no resident set)."""
+    with monkeypatch.context() as m:
+        m.setattr(tloop, "DEVICE_FEED_BUDGET_BYTES", 0)
+        return fn()
+
+
+@pytest.mark.parametrize("chunk_steps", [32, 3])
+def test_fit_chunked_matches_per_step_trainer(tiny_data, monkeypatch,
+                                              chunk_spy, chunk_steps):
+    """The JAX package's gate (tests/test_train.py:398-421) on the port:
+    40 samples at batch 4 (10 steps, the batches wrap), lr 0.01, seed 7; one
+    chunk, then chunks of 3 (3, 3, 3 and a remainder of 1)."""
+    monkeypatch.setattr(tloop, "TRAIN_CHUNK_STEPS", chunk_steps)
+    cfg, lcfg = NetworkConfig(**CHUNK_CFG), tloop.LossConfig()
+
+    def run():
+        log = []
+        st = tloop.fit(cfg, lcfg, tiny_data, iterations=40, batch_size=4,
+                       base_lr=0.01, random_seed=7, device="cpu",
+                       progress=lambda s, n, m: log.append((s, n, m)))
+        return st, log
+
+    chunked, clog = run()
+    assert chunk_spy == [4]
+    step, slog = _per_step(monkeypatch, run)
+    assert chunk_spy == [4]              # the per-step run made no chunk
+    assert [(s, n) for s, n, _ in clog] == [(s, n) for s, n, _ in slog] == [
+        (s, 4 * (s + 1)) for s in range(10)]
+    assert [m for _, _, m in clog] == [m for _, _, m in slog]
+    assert chunked.step == step.step == 10
+    assert chunked.opt_state["count"] == step.opt_state["count"] == 10
+    for (layer, part) in _leaves(step.params):
+        np.testing.assert_allclose(
+            chunked.params[layer][part].detach().numpy(),
+            step.params[layer][part].detach().numpy(), rtol=2e-5, atol=1e-7)
+
+
+def test_fit_chunked_matches_jax_chunked_fit(tiny_data, monkeypatch):
+    """12 steps over 6 images from the same weights: the JAX fit runs one
+    scan chunk of 12, the port chunks of 5, 5 and 2; every step's losses and
+    the final params and Adam state at test_fit_eight_steps_matches_jax's
+    tolerances."""
+    monkeypatch.setattr(tloop, "TRAIN_CHUNK_STEPS", 5)
+    jstate, tstate, jlog, tlog = _fit_both(tiny_data, CHUNK_CFG, 48, None)
+    assert [(s, n) for s, n, _ in tlog] == [(s, n) for s, n, _ in jlog]
+    assert len(tlog) == 12 and tstate.samples == jstate.samples == 48
+    for (_, _, tmet), (_, _, jmet) in zip(tlog, jlog):
+        assert sorted(tmet) == sorted(jmet)
+        for key in jmet:
+            assert abs(tmet[key] - jmet[key]) <= 1e-5 * max(
+                abs(jmet[key]), 1e-6), key
+    _assert_trees(params_to_numpy(tstate.params),
+                  jax.tree_util.tree_map(np.asarray, jstate.params),
+                  atol=1e-5)
+    assert tstate.opt_state["count"] == int(jstate.opt_state[0].count) == 12
+    _assert_trees(tstate.opt_state["mu"], jax.tree_util.tree_map(
+        np.asarray, jstate.opt_state[0].mu), atol=1e-6)
+
+
+def test_fit_chunked_checkpoints_off_chunk_boundary(tiny_data, tmp_path,
+                                                    monkeypatch, chunk_spy):
+    """Chunks of 4 steps, a checkpoint every 6 (24 samples) over 14 steps:
+    chunks of 4, 2 | 4, 2 | 2, each checkpoint the last step of its chunk.
+    The chunked, per-step and JAX fits save the same sample counts, the
+    callbacks see every global step once and in order, 'val_whdr' appears
+    from the step after each save, and the val function sees the params
+    of the checkpoint's step (the port's chunked and per-step runs agree on
+    them)."""
+    monkeypatch.setattr(tloop, "TRAIN_CHUNK_STEPS", 4)
+
+    def run(pkg, extra=None):
+        loop, ckm = ((jloop, jc) if pkg == "jax" else (tloop, tc))
+        cfg = (JConfig if pkg == "jax" else NetworkConfig)(**CHUNK_CFG)
+        ck = ckm.Checkpointer(str(tmp_path / pkg), "d", interval=24)
+        os.makedirs(ck.snapshot_dir)
+        log = []
+
+        def val(p):
+            leaf = np.asarray(p["conv0"]["kernel"].detach()
+                              if pkg != "jax" else p["conv0"]["kernel"])
+            return float(np.abs(leaf).sum())
+
+        loop.fit(cfg, loop.LossConfig(), tiny_data, 56, 4, random_seed=0,
+                 init_params=_jparams(CHUNK_CFG), checkpointer=ck,
+                 callbacks=[lambda s, m: log.append(
+                     ("cb", s, m.get("val_whdr")))],
+                 on_checkpoint=lambda n, p: log.append(("ckpt", n)),
+                 val_fn=val, **(extra or {}))
+        return sorted(os.listdir(ck.snapshot_dir)), log
+
+    tsnaps, tlog = run("chunked", {"device": "cpu"})
+    assert chunk_spy == [4]
+    psnaps, plog = _per_step(monkeypatch,
+                             lambda: run("per-step", {"device": "cpu"}))
+    jsnaps, jlog = run("jax")
+    assert tsnaps == psnaps == jsnaps == [
+        "d_barrista_iter_{}.npz".format(i) for i in (24, 48, 56)]
+    assert tlog == plog
+    # the JAX run's val values come from its own params (1e-6 relative)
+    assert [e[:2] for e in tlog] == [e[:2] for e in jlog]
+    steps = [e[1] for e in tlog if e[0] == "cb"]
+    assert steps == list(range(14))
+    ckpts = [i for i, e in enumerate(tlog) if e[0] == "ckpt"]
+    assert [tlog[i][1] for i in ckpts] == [24, 48, 56]
+    assert [tlog[i - 1][1] for i in ckpts] == [5, 11, 13]
+    vals = [e[2] for e in tlog if e[0] == "cb"]
+    assert vals[:6] == [None] * 6 and None not in vals[6:]
+    assert vals[6] != vals[12]            # re-evaluated at the second save
+    for a, b in zip([e[2] for e in jlog if e[0] == "cb"], vals):
+        assert (a is None) == (b is None)
+        assert a is None or abs(a - b) <= 1e-6 * abs(b)
+    for name in tsnaps:
+        pa, oa, _ = tc.load_checkpoint(str(tmp_path / "chunked" / name))
+        pb, ob, _ = tc.load_checkpoint(str(tmp_path / "per-step" / name))
+        _assert_trees(pa, pb, atol=1e-7)
+        assert oa["count"] == ob["count"] == int(name[16:-4]) // 4
+
+
+def test_resume_equals_uninterrupted_chunked(tiny_data, tmp_path,
+                                             monkeypatch, chunk_spy):
+    """fit(14 steps) against fit(7 steps) + checkpoint + resume to 14, all
+    through chunks of 3 (the resumed run starts mid-set, at sample 28)."""
+    monkeypatch.setattr(tloop, "TRAIN_CHUNK_STEPS", 3)
+    cfg = NetworkConfig(**CHUNK_CFG)
+    lcfg = tloop.LossConfig()
+    full = tloop.fit(cfg, lcfg, tiny_data, 56, 4, random_seed=3,
+                     device="cpu")
+    ck = tc.Checkpointer(str(tmp_path), "d", interval=28)
+    tloop.fit(cfg, lcfg, tiny_data, 28, 4, random_seed=3, checkpointer=ck,
+              device="cpu")
+    params, opt_state, _ = tc.load_checkpoint(ck.path(28))
+    steps = []
+    resumed = tloop.fit(cfg, lcfg, tiny_data, 56, 4, random_seed=3,
+                        init_params=params, init_opt_state=opt_state,
+                        base_samples=28, device="cpu",
+                        progress=lambda s, n, m: steps.append((s, n)))
+    assert chunk_spy == [4, 4, 4]
+    assert steps == [(s, 4 * (s + 1)) for s in range(7, 14)]
+    assert resumed.samples == 56 and resumed.step == 14
+    assert resumed.opt_state["count"] == full.opt_state["count"] == 14
+    _assert_trees(params_to_numpy(resumed.params),
+                  params_to_numpy(full.params), atol=1e-6)
+
+
+def test_fit_chunked_wdm_ratio_below_one(tiny_data, monkeypatch, chunk_spy):
+    """The hinge's ratio subsampling (ceil(ratio * n) of each image's
+    comparisons, from a table made once on the device) through chunks of 4:
+    equal to the per-step trainer, and to the JAX package's fit at
+    test_fit_eight_steps_matches_jax's tolerance."""
+    from reflectance_filtering_tpu_torch.losses import whdr as tw
+    monkeypatch.setattr(tloop, "TRAIN_CHUNK_STEPS", 4)
+    wdm = "0.1_0.05_0.4_1"
+    lkw = dict(whdr_delta_margin_ratio_dense=wdm)
+    params = _jparams(CHUNK_CFG, seed=2)
+
+    def run():
+        log = []
+        st = tloop.fit(NetworkConfig(**CHUNK_CFG), tloop.LossConfig(**lkw),
+                       tiny_data, 40, 4, random_seed=0, init_params=params,
+                       device="cpu",
+                       progress=lambda s, n, m: log.append(m))
+        return st, log
+
+    tw._ratio_table.cache_clear()
+    chunked, clog = run()
+    assert chunk_spy == [4]
+    # one table for the run: every step after the first read it cached
+    assert tw._ratio_table.cache_info().misses == 1
+    step, slog = _per_step(monkeypatch, run)
+    assert clog == slog
+    _assert_trees(params_to_numpy(chunked.params),
+                  params_to_numpy(step.params), atol=1e-7)
+    jlog = []
+    jstate = jloop.fit(JConfig(**CHUNK_CFG), jloop.LossConfig(**lkw),
+                       tiny_data, 40, 4, random_seed=0, init_params=params,
+                       progress=lambda s, n, m: jlog.append(m))
+    for tmet, jmet in zip(clog, jlog):
+        assert abs(tmet["loss_whdr_hinge"] - jmet["loss_whdr_hinge"]) <= \
+            1e-5 * max(abs(jmet["loss_whdr_hinge"]), 1e-6)
+    _assert_trees(params_to_numpy(chunked.params),
+                  jax.tree_util.tree_map(np.asarray, jstate.params),
+                  atol=1e-5)
+
+
+def test_make_train_chunk_matches_train_step(tiny_data):
+    """make_train_chunk on the CPU against make_train_step on the same
+    wrap-padded rows: chunks of 5 and 4 from cursor 3 (the batches wrap
+    past the set's end), stacked metrics in sorted key order, params
+    bitwise; a chunk of 0 or of more than TRAIN_CHUNK_STEPS raises."""
+    cfg, lcfg, bs = NetworkConfig(**CHUNK_CFG), tloop.LossConfig(), 4
+    images = np.concatenate([tiny_data["images"],
+                             tiny_data["images"][:bs - 1]])
+    comps = np.concatenate([tiny_data["comparisons"],
+                            tiny_data["comparisons"][:bs - 1]])
+    n = tiny_data["images"].shape[0]
+    pa = tloop.trainable(_jparams(CHUNK_CFG), "cpu")
+    pb = tloop.trainable(_jparams(CHUNK_CFG), "cpu")
+    im_t, cp_t = torch.from_numpy(images), torch.from_numpy(comps)
+    chunk = tloop.make_train_chunk(cfg, lcfg, pa, tloop.make_optimizer(
+        "ADAM", 1e-3, pa), im_t, cp_t, cp_t, bs)
+    step = tloop.make_train_step(cfg, lcfg, pb,
+                                 tloop.make_optimizer("ADAM", 1e-3, pb))
+    cursor = 3
+    for k in (5, 4):
+        stacked = chunk(0, cursor, k).clone()
+        assert stacked.shape == (k, len(chunk.keys))
+        for j in range(k):
+            start = (cursor + j * bs) % n
+            met = step(im_t[start:start + bs], cp_t[start:start + bs])
+            assert chunk.keys == sorted(met)
+            assert stacked[j].tolist() == [met[key].item()
+                                           for key in chunk.keys]
+        cursor = (cursor + k * bs) % n
+    for layer, part in _leaves(pb):
+        assert torch.equal(pa[layer][part], pb[layer][part]), (layer, part)
+    for k in (0, tloop.TRAIN_CHUNK_STEPS + 1):
+        with pytest.raises(ValueError):
+            chunk(0, 0, k)
+
+
+def test_make_train_chunk_is_freed_without_gc(tiny_data):
+    """make_train_chunk's callable holds no reference cycle, so dropping it
+    frees its state (on a card its CUDA graph and the graph's memory) at
+    once, not at a garbage collection that could fall inside a later
+    capture; its keys are the first step's metrics, sorted."""
+    import gc
+    import weakref
+    cfg, bs = NetworkConfig(**CHUNK_CFG), 4
+    images = torch.from_numpy(np.concatenate(
+        [tiny_data["images"], tiny_data["images"][:bs - 1]]))
+    comps = torch.from_numpy(np.concatenate(
+        [tiny_data["comparisons"], tiny_data["comparisons"][:bs - 1]]))
+    params = tloop.trainable(_jparams(CHUNK_CFG), "cpu")
+    chunk = tloop.make_train_chunk(
+        cfg, tloop.LossConfig(), params,
+        tloop.make_optimizer("ADAM", 1e-3, params), images, comps, comps, bs)
+    stacked = chunk(0, 0, 2)
+    assert chunk.keys == sorted(chunk.keys) and stacked.shape == (
+        2, len(chunk.keys))
+    ref = weakref.ref(chunk)
+    gc.disable()
+    try:
+        del chunk
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_launch_counts_follow_graph_replays(monkeypatch):
+    """A wrapper's launch inside a CUDA graph capture runs nothing, so it
+    is not counted then: it goes into the open record_launches tally (or
+    nowhere without one), and count_replays adds the tally once a replay,
+    as make_train_chunk does after its replays."""
+    from reflectance_filtering_tpu_torch.ops import _build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    wrapper.dx_launches = 0
+    _build.count(wrapper)
+    assert wrapper.launches == 1
+    monkeypatch.setattr(_build, "_capturing", lambda: True)
+    _build.count(wrapper)                   # a capture with no tally open
+    with _build.record_launches() as tally:
+        _build.count(wrapper)
+        _build.count(wrapper, "dx_launches", 2)
+    assert (wrapper.launches, wrapper.dx_launches) == (1, 0)
+    assert tally == {(wrapper, "launches"): 1, (wrapper, "dx_launches"): 2}
+    monkeypatch.undo()
+    _build.count_replays(tally, 5)
+    assert (wrapper.launches, wrapper.dx_launches) == (6, 10)
+    assert not _build._tallies
