@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.whdr_gather import gather_pairs, gather_pairs_plain
+from ..utils.profiling import span
 
 EPS = np.float32(np.finfo(np.float32).eps)
 MAX_EVALUATED_COMPARISONS = 1500  # whdr_hinge_loss_layer.py:36
@@ -121,19 +122,26 @@ def _batch_lightness_pairs(reflectance: torch.Tensor,
     return _floor_eps(l1), _floor_eps(l2), darker, weight, valid, num
 
 
-def whdr_per_image(reflectance: torch.Tensor, comparisons: torch.Tensor,
-                   delta: float = 0.1, kernels: bool = True) -> torch.Tensor:
-    """Per-image WHDR [B].  reflectance [B,H,W] or [B,H,W,C], comparisons
-    [B,K+1,6] on the same device."""
+def _whdr_per_image(reflectance, comparisons, delta, kernels):
     l1, l2, darker, weight, valid, _ = _batch_lightness_pairs(
         reflectance, comparisons, kernels)
     return _classify_error(l1, l2, darker, weight, valid, delta)
 
 
+def whdr_per_image(reflectance: torch.Tensor, comparisons: torch.Tensor,
+                   delta: float = 0.1, kernels: bool = True) -> torch.Tensor:
+    """Per-image WHDR [B].  reflectance [B,H,W] or [B,H,W,C], comparisons
+    [B,K+1,6] on the same device."""
+    with span("whdr.per_image"):
+        return _whdr_per_image(reflectance, comparisons, delta, kernels)
+
+
 def whdr_batch(reflectance: torch.Tensor, comparisons: torch.Tensor,
                delta: float = 0.1, kernels: bool = True) -> torch.Tensor:
-    """Batch mean WHDR (the mean of the per-image values)."""
-    return whdr_per_image(reflectance, comparisons, delta, kernels).mean()
+    """Batch mean WHDR (the mean of the per-image values).  No span: the
+    training step calls it, and a captured step's code runs only at its
+    capture."""
+    return _whdr_per_image(reflectance, comparisons, delta, kernels).mean()
 
 
 @functools.lru_cache(maxsize=16)

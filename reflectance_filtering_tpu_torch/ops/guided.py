@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 from .box_kernel import box_filter_planar
 from .guided_chain_kernel import guided_filter_chain
@@ -121,15 +122,16 @@ def guided_filter_iterated(guide, src, radius: int, eps, iterations: int = 3,
     del guide_u8
     if iterations <= 0:
         return src
-    if planar:
-        return guided_filter_chain(guide.to(torch.float32).contiguous(),
-                                   src.to(torch.float32).contiguous(),
-                                   int(radius), float(eps), iterations)
-    batched = np.ndim(src) == 4
-    out = src
-    for _ in range(iterations):
-        out = guided_filter(guide, out, radius, eps, batched=batched)
-    return out
+    with span("guided.iterated"):
+        if planar:
+            return guided_filter_chain(guide.to(torch.float32).contiguous(),
+                                       src.to(torch.float32).contiguous(),
+                                       int(radius), float(eps), iterations)
+        batched = np.ndim(src) == 4
+        out = src
+        for _ in range(iterations):
+            out = guided_filter(guide, out, radius, eps, batched=batched)
+        return out
 
 
 def fast_guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .box_kernel import box_filter_planar_plain
 from .guided_kernel import (box_planes, by_channel_groups, check_grid,
@@ -138,7 +139,10 @@ def guided_filter_chain(guide: torch.Tensor, src: torch.Tensor, radius: int,
     src."""
     if iterations <= 0:
         return src
-    stats = guide_stats(guide, radius, eps)
+    # the issue up to the first launch, which the card waits for; the
+    # applications' launches overlap the statistics pass on the card
+    with span("guided.stats"):
+        stats = guide_stats(guide, radius, eps)
     for _ in range(iterations):
         src = guided_apply_cached(stats, guide, src, radius)
     return src

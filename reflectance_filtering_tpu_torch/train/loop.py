@@ -41,6 +41,7 @@ from ..models.networks import (NetworkConfig, apply_network, init_network,
                                params_to_torch, update_bn_stats)
 from ..models.recover import recover_reflectance_shading
 from ..ops import _build
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -401,7 +402,8 @@ def make_train_chunk(net_cfg: NetworkConfig, loss_cfg: LossConfig,
             gc.collect()
             graph = torch.cuda.CUDAGraph()
             try:
-                with _build.record_launches() as tally, \
+                with span("fit.capture"), \
+                        _build.record_launches() as tally, \
                         torch.cuda.graph(graph):
                     one_step()
             except RuntimeError as exc:   # CUDA's and the launches' errors
@@ -449,8 +451,9 @@ def _drain_chunk(pending, fan_out_metrics, maybe_checkpoint,
     then each step's metrics to the callbacks in order, then the checkpoint
     due at its last step."""
     step0, k, samples0, keys, (host, event) = pending
-    if event is not None:
-        event.synchronize()
+    with span("fit.wait"):
+        if event is not None:
+            event.synchronize()
     for j, values in enumerate(host.tolist()):
         fan_out_metrics(step0 + j, samples0 + (j + 1) * batch_size,
                         dict(zip(keys, values)))
@@ -674,9 +677,10 @@ def fit(net_cfg: NetworkConfig, loss_cfg: LossConfig, X: Dict,
     pending = None
     s = 0
     while s < num_steps:
-        k, keys, stacked = dispatch(s)
-        ready = (base_steps + s, k, base_samples + s * batch_size, keys,
-                 _to_host(stacked))
+        with span("fit.dispatch"):
+            k, keys, stacked = dispatch(s)
+            ready = (base_steps + s, k, base_samples + s * batch_size, keys,
+                     _to_host(stacked))
         if pending is not None:
             _drain_chunk(pending, fan_out_metrics, maybe_checkpoint,
                          batch_size)

@@ -288,7 +288,7 @@ def decompose_images_batched(paths: Sequence[str], params,
     from ..data.native_loader import read_images_rgb
 
     seconds = {"decode": 0.0, "device": 0.0, "write": 0.0}
-    with span("decode") as s:
+    with span("predict.decode") as s:
         raw, failed = read_images_rgb(paths)
         for p in failed:
             print("Decomposing file", p, "was not possible")
@@ -308,7 +308,7 @@ def decompose_images_batched(paths: Sequence[str], params,
             # (helper:410-435): one group the device cannot run (out of
             # memory on a large frame) must not abort the others
             try:
-                with span("device") as s:
+                with span("predict.device") as s:
                     refl, shad, rs = _predict_numpy(
                         predict_fn, params,
                         np.stack([im for _, im in chunk]), device)
@@ -318,7 +318,7 @@ def decompose_images_batched(paths: Sequence[str], params,
                       "was not possible")
                 traceback.print_exc()
                 continue
-            with span("write") as s:
+            with span("predict.write") as s:
                 for i, (p, _) in enumerate(chunk):
                     _write_decomposition(
                         results_dir,

@@ -47,6 +47,7 @@ from ..ops import _build
 from ..ops.bilateral_kernel import bilateral_gray_self
 from ..ops.cnn_kernel import pack_weights
 from ..ops.guided import guided_filter_planar
+from .profiling import span
 
 KINDS = ("cnn", "bf", "gf")
 
@@ -68,22 +69,28 @@ class FlagshipModule(torch.nn.Module):
         self.register_buffer("weights", weights)
 
     def forward(self, img_bgr_u8_planar: torch.Tensor) -> torch.Tensor:
-        r = decompose_planar(self.weights, img_bgr_u8_planar)
-        if self.kind == "cnn":
-            return r
-        # the -r.png byte path: floor(r*255) (a sigmoid < 1 never triggers
-        # imwrite's percentile normalize)
-        r_u8 = torch.floor(r * 255.0)
-        if self.kind == "bf":
-            # as uint8 levels (exact: they lie in 0-254), K2's table form
-            q = bilateral_gray_self(r_u8.to(torch.uint8), -1, 20.0, 22.0,
-                                    reps=3)
-        else:
-            # guidance = the original photo (RGB planar, 0-255)
-            guide = img_bgr_u8_planar.to(r_u8.device).flip(1).to(
-                torch.float32)
-            q = guided_filter_planar(guide, r_u8[:, None], 45, 3.0)[:, 0]
-        return torch.clamp(torch.round(q), 0.0, 255.0)
+        with span("serve.forward"):
+            with span("serve.cnn"):
+                r = decompose_planar(self.weights, img_bgr_u8_planar)
+            if self.kind == "cnn":
+                return r
+            with span("serve.filter"):
+                # the -r.png byte path: floor(r*255) (a sigmoid < 1 never
+                # triggers imwrite's percentile normalize)
+                r_u8 = torch.floor(r * 255.0)
+                if self.kind == "bf":
+                    # as uint8 levels (exact: they lie in 0-254), K2's
+                    # table form
+                    q = bilateral_gray_self(r_u8.to(torch.uint8), -1, 20.0,
+                                            22.0, reps=3)
+                else:
+                    # guidance = the original photo (RGB planar, 0-255)
+                    guide = img_bgr_u8_planar.to(r_u8.device).flip(1).to(
+                        torch.float32)
+                    q = guided_filter_planar(guide, r_u8[:, None], 45,
+                                             3.0)[:, 0]
+            with span("serve.round"):
+                return torch.clamp(torch.round(q), 0.0, 255.0)
 
 
 def pipeline_fn(kind: str, net: ReflectanceNet, device) -> FlagshipModule:

@@ -1224,3 +1224,202 @@ def test_k8_sort_path_captures_in_a_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, exp)
+
+
+def _merged_idle_us(events):
+    """The card's idle µs in a Chrome trace, counted apart from
+    ``utils/profiling.py``: from the first device operation's start to
+    the last one's end, less the union of their intervals."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return spans[-1][1] - spans[0][0] - busy
+
+
+def _served_request(dev, kind):
+    from reflectance_filtering_tpu_torch.losses.whdr import whdr_per_image
+    from reflectance_filtering_tpu_torch.utils.serving import pipeline_fn
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps)
+    net = ReflectanceNet()
+    net.load_state_dict(params_from_numpy(seeded_reference_params(6)))
+    module = pipeline_fn(kind, net, dev)
+    img = _served_photos(dev, (4, 3, 64, 80), 2)
+    comps = torch.from_numpy(make_synthetic_comps(5, 200, batch=4)).to(dev)
+
+    def request():
+        q = module(img)
+        return whdr_per_image(q / 255.0, comps)
+    request()
+    torch.cuda.synchronize()
+    return request
+
+
+@pytest.mark.parametrize("kind", ["bf", "gf"])
+def test_spans_and_kernels_share_a_cuda_only_profiles_timeline(dev, kind,
+                                                               tmp_path):
+    """Under a CUDA-only torch.profiler session, as the benchmark opens
+    one: torch's profiler flag is set, the spans record, and on the
+    trace's timeline every kernel starts after the span it was launched in
+    began (K1's after serve.cnn's start) and after its launch."""
+    import json
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from reflectance_filtering_tpu_torch.utils import profiling
+    request = _served_request(dev, kind)
+    t0 = time.time_ns()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    enabled = torch.autograd.profiler._is_profiler_enabled
+    for _ in range(3):
+        request()
+        torch.cuda.synchronize()
+    prof.stop()
+    assert enabled
+    records = [r for r in profiling.spans() if r.start_ns >= t0]
+    names = [r.name for r in records]
+    assert names.count("serve.forward") == names.count("whdr.per_image") == 3
+    assert names.count("serve.cnn") == names.count("serve.filter") == 3
+    path = str(tmp_path / "cuda_only.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = trace["traceEvents"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("ph") == "X" and e.get("cat") in profiling
+                .LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"
+               and "spin_kernel" not in e["name"]]
+    assert kernels
+    spans = [(r.name, (r.start_ns - base) / 1e3, (r.end_ns - base) / 1e3)
+             for r in records]
+    checked = k1 = 0
+    for k in kernels:
+        t = launches.get(k["args"].get("correlation"))
+        if t is None:
+            continue
+        assert k["ts"] >= t, (k["name"], k["ts"] - t)
+        inside = [(n, s) for n, s, e in spans if s <= t <= e]
+        if not inside:           # q / 255 between the pipeline and WHDR
+            continue
+        assert all(k["ts"] >= s for _, s in inside), k["name"]
+        checked += 1
+        if "cnn_fwd" in k["name"]:
+            assert "serve.cnn" in [n for n, _ in inside]
+            k1 += 1
+    assert k1 == 3 and checked >= len(kernels) // 2, (checked, len(kernels))
+
+
+def test_device_trace_charges_the_served_requests_idle_time(dev, tmp_path):
+    """device_trace around served gf requests, in a process that has run
+    the port's kernels: the idle file's parts sum to the trace's device
+    idle time within 1%, most of it charged to the program's spans, and
+    its record counts say whether the profile lost any.  The same card
+    trace with one kernel's record taken out, as a profile that lost it
+    would read: its launch is counted as lost and the gap it leaves goes
+    to UNMATCHED, to no span."""
+    import json
+    import os
+    from reflectance_filtering_tpu_torch.utils import profiling
+    request = _served_request(dev, "gf")
+    with profiling.device_trace(str(tmp_path)):
+        for _ in range(5):
+            request()
+            torch.cuda.synchronize()
+    idle_name, trace_name = sorted(os.listdir(str(tmp_path)))
+    with open(str(tmp_path / idle_name)) as f:
+        idle = json.load(f)
+    with open(str(tmp_path / trace_name)) as f:
+        events = json.load(f)["traceEvents"]
+    print("served gf requests:", json.dumps(idle))
+    want = _merged_idle_us(events)
+    assert sum(idle["idle_us_by_span"].values()) == pytest.approx(
+        want, rel=0.01)
+    assert idle["idle_us"] == pytest.approx(want, rel=0.01)
+    named = sum(v for k, v in idle["idle_us_by_span"].items()
+                if k.startswith(("serve.", "whdr.")))
+    assert named > 0
+    # a launch whose device record was lost inside the window charges the
+    # gap it falls in to UNMATCHED, never to a span
+    lost = sum(idle["launches_without_device_op"].values())
+    if lost > idle["launches_without_device_op_before_the_window"]:
+        assert idle["idle_us_by_span"].get(profiling.UNMATCHED, 0) > 0
+    with open(str(tmp_path / trace_name)) as f:
+        base = int(json.load(f).get("baseTimeNanoseconds", 0))
+    records = profiling.spans()
+    full = profiling.idle_by_span(events, records, base)
+    assert full["idle_us_by_span"] == pytest.approx(idle["idle_us_by_span"])
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("ph") == "X"
+                and e.get("cat") in profiling.LAUNCH_CATEGORIES
+                and "correlation" in e.get("args", {})}
+    ops = sorted((e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in profiling.DEVICE_CATEGORIES),
+                 key=lambda e: e["ts"])
+
+    def alone(i):
+        """ops[i], a kernel between two ops, none overlapping, each
+        with its launch."""
+        a, k, b = ops[i - 1:i + 2]
+        return (k.get("cat") == "kernel" and k.get("dur", 0) > 0
+                and a["ts"] + a.get("dur", 0) <= k["ts"]
+                and k["ts"] + k["dur"] <= b["ts"]
+                and all(o["args"].get("correlation") in launched
+                        for o in (a, k, b)))
+    middle = len(ops) // 2
+    (i, *_) = sorted((i for i in range(1, len(ops) - 1) if alone(i)),
+                     key=lambda i: abs(i - middle))
+    dropped = ops[i]
+    cut = profiling.idle_by_span([e for e in events if e is not dropped],
+                                 records, base)
+    print("one kernel record taken out:", dropped["name"][:80],
+          json.dumps(cut["idle_us_by_span"]))
+    assert sum(cut["launches_without_device_op"].values()) == lost + 1
+    unmatched = profiling.UNMATCHED
+    assert cut["idle_us_by_span"].get(unmatched, 0) >= \
+        full["idle_us_by_span"].get(unmatched, 0) + dropped["dur"] - 1e-6
+    for name, us in cut["idle_us_by_span"].items():
+        if name != unmatched:
+            assert us <= full["idle_us_by_span"].get(name, 0) + 1e-6, name
+
+
+def test_decompose_profile_dir_idle_file_accounts_for_the_idle(dev,
+                                                               tmp_path,
+                                                               monkeypatch):
+    """``cli/decompose.py --profile_dir`` on cuda (seeded weights): the
+    idle file accounts for the trace's device idle time within 1%."""
+    import json
+    import os
+    import cv2
+    from reflectance_filtering_tpu_torch.cli import decompose
+    monkeypatch.setattr(decompose, "load_reference_weights",
+                        lambda path: seeded_reference_params(6))
+    png = str(tmp_path / "photo.png")
+    cv2.imwrite(png, np.moveaxis(_served_photos("cpu", (1, 3, 96, 128), 3)
+                                 [0].numpy(), 0, -1))
+    out, trace_dir = tmp_path / "out", tmp_path / "trace"
+    out.mkdir()
+    decompose.main(["--filename_in", png, "--path_out", str(out),
+                    "--device", "cuda", "--profile_dir", str(trace_dir)])
+    assert (out / "photo-r.png").exists()
+    idle_name, trace_name = sorted(os.listdir(str(trace_dir)))
+    with open(str(trace_dir / idle_name)) as f:
+        idle = json.load(f)
+    with open(str(trace_dir / trace_name)) as f:
+        events = json.load(f)["traceEvents"]
+    print("decompose --profile_dir:", json.dumps(idle))
+    want = _merged_idle_us(events)
+    assert idle["device_ops"] > 0
+    assert sum(idle["idle_us_by_span"].values()) == pytest.approx(
+        want, rel=0.01)
+    assert set(idle) >= {"device_ops_without_launch",
+                         "launches_without_device_op",
+                         "launches_without_device_op_before_the_window"}

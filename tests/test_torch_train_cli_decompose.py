@@ -140,12 +140,15 @@ def test_fit_profile_dir_writes_a_trace(dataset, tmp_path):
           "--random_seed=0", "--experiment=prof", "--data_root", dataset,
           "--results_root", str(tmp_path), "--profile_dir", trace_dir,
           "--device", "cpu"] + FLAGS)
-    traces = os.listdir(trace_dir)
-    assert len(traces) == 1 and traces[0].endswith(".json")
-    with open(os.path.join(trace_dir, traces[0])) as f:
+    traces = sorted(os.listdir(trace_dir))
+    assert len(traces) == 2 and traces[1].startswith("trace_")
+    assert traces[0] == "idle_" + traces[1][len("trace_"):]
+    with open(os.path.join(trace_dir, traces[1])) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") or "mm" in e.get("name", "")
                for e in events)
+    assert {"fit.dispatch", "fit.wait"} <= {
+        e["name"] for e in events if e.get("cat") == "program_span"}
     assert os.listdir(os.path.join(str(tmp_path), "prof", "snapshots"))
 
 
@@ -156,7 +159,7 @@ def test_profiling_helpers(tmp_path):
     assert s.name == "work" and s.seconds >= 0.0 and x[0, 0] == 64
     with profiling.device_trace(str(tmp_path / "t")):
         torch.ones(8).sum()
-    (name,) = os.listdir(str(tmp_path / "t"))
+    _, name = sorted(os.listdir(str(tmp_path / "t")))
     with open(str(tmp_path / "t" / name)) as f:
         assert "traceEvents" in json.load(f)
     rate = str(tmp_path / "framerates" / "r.txt")
