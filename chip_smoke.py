@@ -20,7 +20,10 @@ Phases (any failure exits nonzero before the result line):
               tensor-core forward, its FP32 forward none (each
               instantiation's HMMA count printed); the F2F.F64.F32
               conversions of K4's, K5's and K9's row passes (K4's and K5's
-              fused forms among them) are counted per kernel;
+              fused forms among them) are counted per kernel, and each of
+              the ten column-pass instantiations (col_sum_kernel,
+              gf_moment_cols) streams its rows by asynchronous copies
+              (LDGSTS, counted per kernel);
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 32 x 256x256, K = 1181; the box
               also on one 2160x3840 plane and on the guided CLI's
@@ -185,7 +188,7 @@ Phases (any failure exits nonzero before the result line):
               3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
               calls, each K9 launch's ms, K9's six passes timed apart at 4K
               and 8K with the column passes at the product's segments and
-              at 32, 64, 128 and 256 rows
+              at 64, 128, 256 and 512 rows
               (reflectance_filtering_tpu_torch/scripts/
               measure_k9_passes.py), and K7's backward split by phase
               (reflectance_filtering_tpu_torch/scripts/
@@ -1714,6 +1717,25 @@ def main():
           and sum("gf_fused_kernel" in t for t in f2f) == 12,
           "the F2F count covers K4's row kernels and K5's 12 fused "
           "instantiations")
+
+    # the column passes of K4, K5 and K9 stream each item's rows into a
+    # ring in shared memory by asynchronous copies: LDGSTS in every
+    # instantiation (box_common.cuh, col_stream)
+    ldgsts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        for kernel in ("col_sum_kernel", "gf_moment_cols"):
+            if kernel in name:
+                targs = re.findall(r"(?:Li|Lb)(\d+)E", name.split(kernel)[1])
+                tag = kernel + ("<{}>".format(", ".join(targs)) if targs
+                                else "")
+                tag += (" (K4)" if "box_filter_cu" in name else
+                        " (K5)" if "guided_cu" in name else " (K9)")
+                ldgsts[tag] = fn.count("LDGSTS")
+    print("LDGSTS per column-pass kernel:", dict(sorted(ldgsts.items())))
+    check(len(ldgsts) == 10 and all(ldgsts.values()),
+          "the ten column-pass instantiations copy their rows by cp.async "
+          "(LDGSTS)")
 
     phase("3. kernels vs plain on the card")
     rng = np.random.RandomState(args.seed)

@@ -1,17 +1,18 @@
 // Shared pieces of the separable box-sum kernels (K4 box_filter.cu, K5
-// guided.cu, K9 guided_chain.cu): border maps by index, the generic column
-// pass and the row window by prefix sums.
+// guided.cu, K9 guided_chain.cu): border maps by index, the streamed
+// column pass and the row window by prefix sums.
 //
-// A window sum of length w = 2r + 1 is taken in two passes, each in
-// float64:
-//   * the column pass gives one thread to each (plane, column, segment of
-//     `seg` rows, col_seg below): it sums the first window in full, then
-//     slides it down the segment, adding the row that enters and
-//     subtracting the row that leaves.  Neighbouring threads own
-//     neighbouring columns, so every load of a warp is one coalesced row
-//     segment.  The window restarts at each segment and the running sum is
-//     float64, so no drift builds up along a column (every partial stays
-//     bounded by w * max|x|, the property the TPU's doubling chain had);
+// A window sum of length 2r + 1 is taken in two passes, each in float64:
+//   * the column pass (col_stream below) gives a warp to each item, a
+//     strip of kStrip = 32 columns (a lane a column, so each input plane's
+//     row of the strip is one coalesced 128 B line) over a segment of `seg`
+//     rows, and streams the item's input rows through a ring in shared
+//     memory; it sums the segment's first window in full, then slides it
+//     down the segment, adding the row that enters and subtracting the row
+//     that leaves.  The window restarts at each segment and the running
+//     sum is float64, so no drift builds up along a column (every partial
+//     stays bounded by (2r + 1) max|x|, the property the TPU's doubling
+//     chain had);
 //   * K4's row pass and K5's fused kernels give a warp to each row (a
 //     plane's row, for K5) and take every output's window as the
 //     difference of two prefix sums of the row (warp_prefix, window_sum
@@ -30,29 +31,6 @@
 // so the sources link into one library without clashing symbols.
 namespace rf {
 namespace {
-
-constexpr int kColThreads = 128;  // columns per block of a column pass
-constexpr int kColSeg = 128;      // rows per thread of a column pass, at most
-constexpr int kColSegMin = 32;    // ... and at least
-constexpr int kColBlocksPerSM = 4;
-
-// Rows per thread of a column pass over `planes` planes of h x w: kColSeg,
-// halved (to kColSegMin at least) while the grid would have fewer than
-// kColBlocksPerSM blocks per SM.  A longer segment reads fewer rows per
-// output (~(2r + 1) / seg + 2), a shorter one keeps the card full: on an
-// H100 the 4K chain's moment passes (one plane group) take 64 rows, its 8K
-// passes and the (a, b) sums 128, a served batch's 256x256 planes 32 or
-// 64 (chip_smoke.py phase 6, scripts/measure_k9_passes.py).
-inline int col_seg(int planes, int h, int w) {
-  const long long cols = (w + kColThreads - 1) / kColThreads;
-  const long long blocks =
-      static_cast<long long>(kColBlocksPerSM) *
-      device_attr<cudaDevAttrMultiProcessorCount>(132);
-  int seg = kColSeg;
-  while (seg > kColSegMin && cols * ((h + seg - 1) / seg) * planes < blocks)
-    seg /= 2;
-  return seg;
-}
 
 // BORDER_REFLECT (numpy's "symmetric"): period 2n, reflecting again and
 // again when the radius exceeds n; n == 1 maps every index to 0.
@@ -82,30 +60,269 @@ __device__ __forceinline__ int border_in(int i, int n, bool r101) {
   return static_cast<unsigned>(i) < static_cast<unsigned>(n) ? i : border(i, n, r101);
 }
 
+// Sets the kernel's dynamic shared-memory limit to `bytes` where that
+// exceeds the default 48 KB.  Returns the cudaError_t of that call (a tile
+// too wide for the 227 KB a block may use on an H100 fails there).
+template <typename Kernel>
+inline cudaError_t smem_limit(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) cudaGetLastError();  // do not let it surface later
+  return err;
+}
+
+// The streamed column pass.  The lane of column x in an item of rows y0 ..
+// y0 + rows - 1 streams n = rows + 2r rows of its kIn input planes, image
+// rows border(y0 - r + m) for m = 0 .. n - 1, and at step m adds row m's
+// terms to its P float64 sums, subtracts row m - 2r - 1's (m > 2r) and
+// stores output row y0 + m - 2r (m >= 2r).  Rows reach shared memory by
+// cp.async, kAhead rows ahead of the step that reads them; each lane
+// copies its own column's values, so it waits only for its own copies
+// (cp.async.wait_group) and no barrier is needed.  The ring holds `depth`
+// slots of a row's kIn x kStrip values:
+//   * depth = 2r + 1 + kAhead where that fits kHoldBytes: the leaving row
+//     is still in the ring (the slot the step then refills), so each
+//     input row crosses device memory once a segment;
+//   * else depth = kAhead, and a second ring of kAhead slots streams the
+//     leaving rows again (past r = 47 on four input planes, 66 on three,
+//     215 on one).
+// Both dependencies of the sums' chain are then loads from shared memory
+// of rows that arrived long before.  The sums are taken in the order the
+// one-thread-a-column pass took them (the window's rows in order, then
+// each step's entering row, then its leaving row).
+constexpr int kStrip = 32;       // columns of an item: one warp, a lane each
+constexpr int kAhead = 16;       // rows in flight per item
+constexpr int kStep = 4;         // rows a wait covers, where they fill one
+constexpr int kColSegMin = 32;   // rows an item, at least (by default)
+// a ring that holds its window, at most: four an SM at r = 45 on four
+// input planes (the 4K chain's moment pass)
+constexpr int kHoldBytes = 56 * 1024;
+
+// Launch shape of a column pass: grid (ceil(w / kStrip), ceil(h / seg),
+// groups), kStrip threads, `smem` bytes of ring, `depth` slots.
+struct ColLaunch {
+  dim3 grid;
+  int seg, depth, smem;
+};
+
+// The launch shape of a column pass whose items read `in_planes` input
+// planes, over `groups` independent groups (the grid's z: images, or
+// planes), each h x w.  seg > 0 fixes the rows an item; seg == 0 takes
+// the product's: items as long as the card, filled once, allows (the
+// rows over as many segments as the items that fit the SMs by shared
+// memory leave to each strip), at least kColSegMin rows.  A longer
+// segment re-reads fewer rows for its first window ((seg + 2r) / seg
+// rows read an output row), and one wave leaves no tail.
+inline ColLaunch col_launch(int in_planes, int groups, int h, int w,
+                            int radius, int seg) {
+  ColLaunch launch;
+  const long long row = static_cast<long long>(in_planes) * kStrip * sizeof(float);
+  const long long window = 2LL * radius + 1 + kAhead;
+  const bool hold = window * row <= kHoldBytes;
+  launch.depth = hold ? static_cast<int>(window) : kAhead;
+  launch.smem = static_cast<int>((hold ? window : 2LL * kAhead) * row);
+  const long long strips = (w + kStrip - 1) / kStrip;
+  if (seg <= 0) {
+    const long long per_sm_smem =
+        device_attr<cudaDevAttrMaxSharedMemoryPerMultiprocessor>(233472) /
+        (launch.smem + device_attr<cudaDevAttrReservedSharedMemoryPerBlock>(1024));
+    const long long per_sm_blocks =
+        device_attr<cudaDevAttrMaxBlocksPerMultiprocessor>(32);
+    const long long items =
+        device_attr<cudaDevAttrMultiProcessorCount>(132) *
+        (per_sm_smem < per_sm_blocks ? per_sm_smem : per_sm_blocks);
+    long long segs = items / (strips * groups);
+    if (segs < 1) segs = 1;
+    const long long rows = (h + segs - 1) / segs;
+    seg = static_cast<int>(rows < kColSegMin ? kColSegMin : rows);
+  }
+  launch.seg = seg;
+  launch.grid = dim3(static_cast<unsigned>(strips), (h + seg - 1) / seg, groups);
+  return launch;
+}
+
+// Launches the column pass Kernel(args..., seg, depth) in col_launch's
+// shape.  Its shared-memory limit is raised (smem_limit) once per device
+// and larger size: the host launches a column pass several times a frame,
+// at sizes the radius fixes.  Returns the cudaError_t of the attribute
+// call or the launch.
+template <auto Kernel, typename... Args>
+inline cudaError_t launch_cols(int in_planes, int groups, int h, int w, int radius,
+                               int seg, cudaStream_t stream, Args... args) {
+  static int limit[64] = {0};  // bytes set so far, per device
+  const ColLaunch c = col_launch(in_planes, groups, h, w, radius, seg);
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
+    cudaGetLastError();
+    dev = -1;
+  }
+  if (dev < 0 || c.smem > limit[dev]) {
+    const cudaError_t err = smem_limit(Kernel, c.smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0) limit[dev] = c.smem;
+  }
+  Kernel<<<c.grid, kStrip, c.smem, stream>>>(args..., c.seg, c.depth);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ void ring_copy(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of the calling thread's groups of copies
+// are in flight.
+template <int kPending>
+__device__ __forceinline__ void ring_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One item of a column pass (see above) for the calling lane, launched as
+// col_launch says: in[q] is input plane q of the item's group, out its
+// first output plane (P planes `plane` floats apart), terms(v, t) the P
+// values a row adds from its kIn input values v.  Each row's copies are
+// one group: before rows m .. m + k - 1 are read, kAhead + m groups have
+// been committed, so at most kAhead - k may still be in flight.
+template <int kIn, int P, typename Terms>
+__device__ __forceinline__ void col_stream(const float* const (&in)[kIn],
+                                           float* __restrict__ out, size_t plane,
+                                           int h, int w, int radius, bool r101,
+                                           int seg, int depth, Terms terms) {
+  extern __shared__ double ring_words[];
+  const int x = blockIdx.x * kStrip + threadIdx.x;
+  if (x >= w) return;
+  const int y0 = blockIdx.y * seg;
+  const int n = min(seg, h - y0) + 2 * radius;
+  const bool hold = depth > kAhead;
+  // this lane's column of the ring's slots (slot s, plane q at (s kIn + q)
+  // kStrip), and of the leaving rows' (the ring itself where it holds the
+  // window)
+  float* ring = reinterpret_cast<float*>(ring_words) + threadIdx.x;
+  float* leave = hold ? ring : ring + depth * kIn * kStrip;
+  // copies stream row m into `slot` (and, without hold, the row leaving at
+  // step m into the same slot of the leaving rows' ring): one group
+  auto fetch = [&](int m, int slot) {
+    if (m < n) {
+      const size_t at = static_cast<size_t>(border_in(y0 - radius + m, h, r101)) * w + x;
+#pragma unroll
+      for (int q = 0; q < kIn; ++q)
+        ring_copy(ring + (slot * kIn + q) * kStrip, in[q] + at);
+      if (!hold && m > 2 * radius) {
+        const size_t from =
+            static_cast<size_t>(border_in(y0 - 3 * radius - 1 + m, h, r101)) * w + x;
+#pragma unroll
+        for (int q = 0; q < kIn; ++q)
+          ring_copy(leave + (slot * kIn + q) * kStrip, in[q] + from);
+      }
+    }
+    ring_commit();
+  };
+  auto load = [&](const float* from, int slot, double (&v)[kIn]) {
+#pragma unroll
+    for (int q = 0; q < kIn; ++q) v[q] = from[(slot * kIn + q) * kStrip];
+  };
+  // the slot after s, and the slot of the row kAhead rows after s's (where,
+  // holding the window, the row 2r + 1 rows before s's is)
+  auto next = [&](int s) { return s + 1 < depth ? s + 1 : 0; };
+  auto ahead = [&](int s) { return s + kAhead < depth ? s + kAhead : s + kAhead - depth; };
+  double acc[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) acc[q] = 0.0;
+  auto add = [&](const double (&v)[kIn]) {
+    double t[P];
+    terms(v, t);
+#pragma unroll
+    for (int q = 0; q < P; ++q) acc[q] += t[q];
+  };
+  // row m enters and row m - 2r - 1 leaves; output row y0 + m - 2r
+  auto slide = [&](int m, const double (&e)[kIn], const double (&l)[kIn]) {
+    double te[P], tl[P];
+    terms(e, te);
+    terms(l, tl);
+    float* o = out + static_cast<size_t>(y0 + m - 2 * radius) * w + x;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      acc[q] += te[q];
+      acc[q] -= tl[q];
+      o[q * plane] = static_cast<float>(acc[q]);
+    }
+  };
+  for (int m = 0; m < kAhead; ++m) fetch(m, m);
+  int m = 0, at = 0;  // the row read next, and its slot
+  // the first window, rows 0 .. 2r, kStep rows a wait where they fill one
+  for (; m + kStep <= 2 * radius + 1; m += kStep) {
+    ring_wait<kAhead - kStep>();
+    double v[kStep][kIn];
+    int slot[kStep];
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) {
+      slot[i] = at;
+      load(ring, at, v[i]);
+      at = next(at);
+    }
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) add(v[i]);
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) fetch(m + kAhead + i, ahead(slot[i]));
+  }
+  for (; m <= 2 * radius; ++m) {
+    ring_wait<kAhead - 1>();
+    double v[kIn];
+    load(ring, at, v);
+    add(v);
+    fetch(m + kAhead, ahead(at));
+    at = next(at);
+  }
+  {
+    float* o = out + static_cast<size_t>(y0) * w + x;
+#pragma unroll
+    for (int q = 0; q < P; ++q) o[q * plane] = static_cast<float>(acc[q]);
+  }
+  // the slide, kStep rows a wait while they fill one, then row by row
+  for (; m + kStep <= n; m += kStep) {
+    ring_wait<kAhead - kStep>();
+    double e[kStep][kIn], l[kStep][kIn];
+    int fill[kStep];
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) {
+      fill[i] = ahead(at);
+      load(ring, at, e[i]);
+      load(leave, fill[i], l[i]);
+      at = next(at);
+    }
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) slide(m + i, e[i], l[i]);
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) fetch(m + kAhead + i, fill[i]);
+  }
+  for (; m < n; ++m) {
+    ring_wait<kAhead - 1>();
+    double e[kIn], l[kIn];
+    const int fill = ahead(at);
+    load(ring, at, e);
+    load(leave, fill, l);
+    slide(m, e, l);
+    fetch(m + kAhead, fill);
+    at = next(at);
+  }
+}
+
 // Column pass over independent planes: out[p, y, x] = sum over t in
 // [-r, r] of in[p, border(y + t), x], as float32 (the sum is float64 until
-// the store).  Grid (ceil(w / kColThreads), ceil(h / seg), planes).
-__global__ void __launch_bounds__(kColThreads)
+// the store).  Launch shape: col_launch(1, planes, h, w, radius, seg).
+__global__ void __launch_bounds__(kStrip)
 col_sum_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
-               int w, int radius, bool r101, int seg) {
-  const int x = blockIdx.x * kColThreads + threadIdx.x;
-  const int y0 = blockIdx.y * seg;
-  if (x >= w) return;
+               int w, int radius, bool r101, int seg, int depth) {
   const size_t plane = static_cast<size_t>(h) * w;
-  const float* src = in + blockIdx.z * plane + x;
-  float* dst = out + blockIdx.z * plane + x;
-  const int y1 = min(h, y0 + seg);
-  double acc = 0.0;
-  for (int t = y0 - radius; t <= y0 + radius; ++t)
-    acc += static_cast<double>(src[static_cast<size_t>(border(t, h, r101)) * w]);
-  for (int y = y0;;) {
-    dst[static_cast<size_t>(y) * w] = static_cast<float>(acc);
-    if (++y >= y1) break;
-    acc += static_cast<double>(
-        src[static_cast<size_t>(border(y + radius, h, r101)) * w]);
-    acc -= static_cast<double>(
-        src[static_cast<size_t>(border(y - radius - 1, h, r101)) * w]);
-  }
+  const float* src[1] = {in + blockIdx.z * plane};
+  col_stream<1, 1>(src, out + blockIdx.z * plane, plane, h, w, radius, r101, seg,
+                   depth, [](const double (&v)[1], double (&t)[1]) { t[0] = v[0]; });
 }
 
 // The row window by prefix sums (K4's row pass and K5's fused kernels).
@@ -247,18 +464,6 @@ __device__ __forceinline__ double window_sum(const double* pre, int w, bool r101
     s += turns * u + periods * (u - pre[o * kStride]);
   }
   return s;
-}
-
-// Sets the kernel's dynamic shared-memory limit to `bytes` where that
-// exceeds the default 48 KB.  Returns the cudaError_t of that call (a tile
-// too wide for the 227 KB a block may use on an H100 fails there).
-template <typename Kernel>
-inline cudaError_t smem_limit(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) cudaGetLastError();  // do not let it surface later
-  return err;
 }
 
 }  // namespace

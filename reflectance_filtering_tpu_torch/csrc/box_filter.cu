@@ -15,8 +15,9 @@
 // output): 16 bytes per pixel against 2 float64 adds per output and pass
 // when each window slides.  The TPU kernel's doubling chain existed to
 // keep every partial bounded by w * max|x|; here the column pass slides a
-// float64 sum that restarts every 32-128 rows (rf::col_sum_kernel, shared
-// with K5 and K9; its segment rf::col_seg), and the row pass gives a warp
+// float64 sum that restarts at each segment of a column, its rows streamed
+// through shared memory (rf::col_sum_kernel over rf::col_stream, shared
+// with K5 and K9; its shape rf::col_launch), and the row pass gives a warp
 // to each row: it converts the row to float64 once, turns it into prefix
 // sums in shared memory and takes each output as the difference of two
 // of them (rf::warp_prefix and rf::window_sum, box_common.cuh, the row
@@ -204,12 +205,8 @@ extern "C" int rf_box_filter(const float* x, float* out, float* tmp, double* scr
   cudaError_t err = warps > 0 ? rf::smem_limit(box_row_kernel<false>, smem) : cudaSuccess;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (warps == 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = rf::col_seg(b, h, w);
-  const dim3 col_grid((w + rf::kColThreads - 1) / rf::kColThreads,
-                      (h + seg - 1) / seg, b);
-  rf::col_sum_kernel<<<col_grid, rf::kColThreads, 0, stream>>>(
-      x, tmp, h, w, radius, r101, seg);
-  err = cudaGetLastError();
+  err = rf::launch_cols<rf::col_sum_kernel>(1, b, h, w, radius, 0, stream, x, tmp, h, w,
+                                            radius, r101);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(b) * h;
   const int per_block = warps > 0 ? warps : kRowWarps;

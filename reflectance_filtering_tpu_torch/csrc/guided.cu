@@ -417,20 +417,17 @@ cudaError_t guided(const float* guide, const float* src, float* out,
                        &span_apply, &smem_apply, &apply_grid, &apply_block);
   if (err != cudaSuccess) return err;
   const double inv_area = rf::inv_area(radius);
-  const int cols = (w + rf::kColThreads - 1) / rf::kColThreads;
-  const int seg = rf::col_seg(n, h, w), ab_seg = rf::col_seg(n * 4 * C, h, w);
-
-  rf::gf_moment_cols<C, true><<<dim3(cols, (h + seg - 1) / seg, n),
-                                rf::kColThreads, 0, stream>>>(
-      guide, src, mom, h, w, radius, seg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = rf::launch_cols<rf::gf_moment_cols<C, true>>(3 + C, n, h, w, radius, 0,
+                                                     stream, guide, src, mom, h,
+                                                     w, radius);
+  if (err != cudaSuccess) return err;
   gf_solve_rows<C><<<solve_grid, solve_block, smem_solve, stream>>>(
       mom, ab, h, w, span_solve, radius, inv_area, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rf::col_sum_kernel<<<dim3(cols, (h + ab_seg - 1) / ab_seg, n * 4 * C),
-                       rf::kColThreads, 0, stream>>>(ab, mom, h, w, radius,
-                                                     false, ab_seg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = rf::launch_cols<rf::col_sum_kernel>(1, n * 4 * C, h, w, radius, 0,
+                                            stream, ab, mom, h, w, radius,
+                                            false);
+  if (err != cudaSuccess) return err;
   rf::gf_apply_rows<C><<<apply_grid, apply_block, smem_apply, stream>>>(
       mom, guide, out, h, w, span_apply, radius, inv_area);
   return cudaGetLastError();

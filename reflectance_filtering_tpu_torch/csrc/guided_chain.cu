@@ -30,11 +30,14 @@
 // run of outputs (guided_common.cuh, row_tile_means: 4 staged taps per
 // output and plane at any radius, each converted to float64 once when
 // staged, against 91 taps at r = 45 before), and the column passes slide one
-// down a segment of up to 128 rows (rf::col_seg).  Device traffic is each
-// pass's input and output planes; no product plane is written.  Borders
-// are mapped by index (box_common.cuh), so an application reads the
-// previous one's plain output plane, at any radius, even one wider than
-// the frame.  Offsets are size_t: one 4320 x 7680 image has 9 stat planes
+// down each column of a strip of 32, its rows streamed through a ring in
+// shared memory by asynchronous copies (box_common.cuh, col_stream; at
+// r = 45 each input row crosses device memory once a segment, and a
+// segment is as long as one wave of items over the card allows, rf::
+// col_launch).  Device traffic is each pass's input and output planes; no
+// product plane is written.  Borders are mapped by index (box_common.cuh),
+// so an application reads the previous one's plain output plane, at any
+// radius, even one wider than the frame.  Offsets are size_t: one 4320 x 7680 image has 9 stat planes
 // of 33.2 M floats.
 #include "guided_common.cuh"
 
@@ -115,14 +118,6 @@ gc_solve_cached_rows(const float* __restrict__ mom,
   }
 }
 
-// The grid of a column pass over z plane groups with segments of `seg`
-// rows (set to rf::col_seg's if it is 0, the product's).
-dim3 col_grid(int z, int h, int w, int* seg) {
-  if (*seg == 0) *seg = rf::col_seg(z, h, w);
-  return dim3((w + rf::kColThreads - 1) / rf::kColThreads,
-              (h + *seg - 1) / *seg, z);
-}
-
 // One pass of the chain (the passes of rf_guide_stats, then those of
 // rf_guided_apply_cached, in order):
 //   0 the guide's moment columns (guide -> mom, 9 planes),
@@ -131,7 +126,7 @@ dim3 col_grid(int z, int h, int w, int* seg) {
 //   3 the solve's rows (mom, stats -> ab),
 //   4 the column sums of ab (ab -> mom),
 //   5 the apply's rows (mom, guide -> out),
-// the column passes (0, 2, 4) with segments of `seg` rows (rf::col_seg's
+// the column passes (0, 2, 4) with items of `seg` rows (rf::col_launch's
 // if 0).
 template <int C>
 cudaError_t chain_pass(int pass, int seg, float* stats, const float* guide,
@@ -145,10 +140,8 @@ cudaError_t chain_pass(int pass, int seg, float* stats, const float* guide,
   switch (pass) {
     case 0:
       // C = 0: the guide's 9 planes only (src is not read)
-      grid = col_grid(n, h, w, &seg);
-      rf::gf_moment_cols<0, true><<<grid, rf::kColThreads, 0, stream>>>(
-          guide, guide, mom, h, w, radius, seg);
-      break;
+      return rf::launch_cols<rf::gf_moment_cols<0, true>>(
+          3, n, h, w, radius, seg, stream, guide, guide, mom, h, w, radius);
     case 1:
       err = rf::row_launch(gc_stats_rows, rf::kGuidePlanes, n, h, w, radius,
                            &span, &smem, &grid, &block);
@@ -157,10 +150,8 @@ cudaError_t chain_pass(int pass, int seg, float* stats, const float* guide,
                                                    radius, inv_area, eps);
       break;
     case 2:
-      grid = col_grid(n, h, w, &seg);
-      rf::gf_moment_cols<C, false><<<grid, rf::kColThreads, 0, stream>>>(
-          guide, src, mom, h, w, radius, seg);
-      break;
+      return rf::launch_cols<rf::gf_moment_cols<C, false>>(
+          3 + C, n, h, w, radius, seg, stream, guide, src, mom, h, w, radius);
     case 3:
       err = rf::row_launch(gc_solve_cached_rows<C>, 4 * C, n, h, w, radius,
                            &span, &smem, &grid, &block);
@@ -169,10 +160,8 @@ cudaError_t chain_pass(int pass, int seg, float* stats, const float* guide,
           mom, stats, ab, h, w, span, radius, inv_area);
       break;
     case 4:
-      grid = col_grid(n * 4 * C, h, w, &seg);
-      rf::col_sum_kernel<<<grid, rf::kColThreads, 0, stream>>>(
-          ab, mom, h, w, radius, false, seg);
-      break;
+      return rf::launch_cols<rf::col_sum_kernel>(
+          1, n * 4 * C, h, w, radius, seg, stream, ab, mom, h, w, radius, false);
     case 5:
       err = rf::row_launch(rf::gf_apply_rows<C>, 4 * C, n, h, w, radius,
                            &span, &smem, &grid, &block);
@@ -250,8 +239,8 @@ extern "C" int rf_guided_apply_cached(const float* stats, const float* guide,
 }
 
 // The chain's passes one at a time, for timing them apart: pass 0..5 as
-// chain_pass numbers them, the column passes with segments of `seg` rows
-// (0: the product's, rf::col_seg).  Arguments as the two entry points
+// chain_pass numbers them, the column passes with items of `seg` rows
+// (0: the product's, rf::col_launch).  Arguments as the two entry points
 // above (stats written by pass 1, read by pass 3; eps read by pass 1
 // only).  Returns the cudaError_t of the attribute call or the launch,
 // cudaErrorInvalidValue for another pass, seg or c.

@@ -7,8 +7,8 @@
 //   mI_k = mean(I_k), V = mean(I I^T) - mI mI^T + eps Id, cov_k =
 //   mean(I_k p) - mI_k mean(p), a = V^-1 cov, b = mean(p) - a . mI,
 //   q = mean(a) . I + mean(b).
-// Sums are float64 until the means; the products, the solve and the
-// apply are float32.
+// Sums are float64 until the means, and the moment products they sum are
+// formed in float64 (exact); the solve and the apply are float32.
 //
 // The row passes.  A row block owns `span` output columns x0 .. x0 + span
 // - 1 of one row (32 runs of kRun, 1056 columns, or fewer where a wide
@@ -46,58 +46,43 @@ constexpr int kRowRuns = 32;     // runs per row block, at most (one a lane)
 
 // Column sums of the moment planes, laid out per image as
 // [I0 I1 I2 | I0I0 I0I1 I0I2 I1I1 I1I2 I2I2 (GUIDE only) | p_0..p_{C-1} |
-//  I0p_0 I1p_0 I2p_0 .. I0p_{C-1} I1p_{C-1} I2p_{C-1}].
-// The products are formed in registers as the window slides and only
-// their column sums are stored.  Grid (ceil(w / kColThreads),
-// ceil(h / seg), n).
+//  I0p_0 I1p_0 I2p_0 .. I0p_{C-1} I1p_{C-1} I2p_{C-1}]: rf::col_stream
+// over the 3 + C input planes (guide, then src), the products formed in
+// registers as each row enters and leaves (in float64, so exactly: a
+// product of two float32 values fits a double's mantissa) and only their
+// column sums stored.  Launch shape: col_launch(3 + C, n, h, w, radius, seg).
 template <int C, bool GUIDE>
-__global__ void __launch_bounds__(kColThreads)
+__global__ void __launch_bounds__(kStrip)
 gf_moment_cols(const float* __restrict__ guide, const float* __restrict__ src,
-               float* __restrict__ mom, int h, int w, int radius, int seg) {
+               float* __restrict__ mom, int h, int w, int radius, int seg,
+               int depth) {
   constexpr int G = GUIDE ? kGuidePlanes : 0;
   constexpr int P = G + 4 * C;
-  const int x = blockIdx.x * kColThreads + threadIdx.x;
-  const int y0 = blockIdx.y * seg;
-  if (x >= w) return;
+  constexpr int kIn = 3 + C;
   const size_t plane = static_cast<size_t>(h) * w;
-  const float* I = guide + blockIdx.z * 3 * plane + x;
-  const float* p = src + blockIdx.z * C * plane + x;
-  float* out = mom + blockIdx.z * P * plane + x;
-
-  double acc[P];
+  const float* in[kIn];
 #pragma unroll
-  for (int q = 0; q < P; ++q) acc[q] = 0.0;
-  // add (sign = 1) or remove (sign = -1) the products of image row y
-  auto add_row = [&](int y, double sign) {
-    const size_t o = static_cast<size_t>(reflect(y, h)) * w;
-    const float i0 = I[o], i1 = I[plane + o], i2 = I[2 * plane + o];
-    float v[P];
-    if constexpr (GUIDE) {
-      v[0] = i0; v[1] = i1; v[2] = i2;
-      v[3] = i0 * i0; v[4] = i0 * i1; v[5] = i0 * i2;
-      v[6] = i1 * i1; v[7] = i1 * i2; v[8] = i2 * i2;
-    }
+  for (int q = 0; q < 3; ++q) in[q] = guide + (blockIdx.z * 3 + q) * plane;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float pc = p[c * plane + o];
-      v[G + c] = pc;
-      v[G + C + 3 * c] = i0 * pc;
-      v[G + C + 3 * c + 1] = i1 * pc;
-      v[G + C + 3 * c + 2] = i2 * pc;
-    }
+  for (int c = 0; c < C; ++c) in[3 + c] = src + (blockIdx.z * C + c) * plane;
+  col_stream<kIn, P>(
+      in, mom + blockIdx.z * P * plane, plane, h, w, radius, false, seg, depth,
+      [](const double (&v)[kIn], double (&t)[P]) {
+        const double i0 = v[0], i1 = v[1], i2 = v[2];
+        if constexpr (GUIDE) {
+          t[0] = i0; t[1] = i1; t[2] = i2;
+          t[3] = i0 * i0; t[4] = i0 * i1; t[5] = i0 * i2;
+          t[6] = i1 * i1; t[7] = i1 * i2; t[8] = i2 * i2;
+        }
 #pragma unroll
-    for (int q = 0; q < P; ++q) acc[q] += sign * static_cast<double>(v[q]);
-  };
-  const int y1 = min(h, y0 + seg);
-  for (int t = y0 - radius; t <= y0 + radius; ++t) add_row(t, 1.0);
-  for (int y = y0;;) {
-#pragma unroll
-    for (int q = 0; q < P; ++q)
-      out[q * plane + static_cast<size_t>(y) * w] = static_cast<float>(acc[q]);
-    if (++y >= y1) break;
-    add_row(y + radius, 1.0);
-    add_row(y - radius - 1, -1.0);
-  }
+        for (int c = 0; c < C; ++c) {
+          const double pc = v[3 + c];
+          t[G + c] = pc;
+          t[G + C + 3 * c] = i0 * pc;
+          t[G + C + 3 * c + 1] = i1 * pc;
+          t[G + C + 3 * c + 2] = i2 * pc;
+        }
+      });
 }
 
 // Doubles of shared memory a row block of `span` output columns stages per

@@ -11,15 +11,15 @@ moment columns, the solve's rows, the column sums of (a, b) and the
 apply's rows.  ``rf_guided_chain_pass`` launches one of them alone; this
 script times each on a 2160x3840 and a 4320x7680 frame made on the card
 from ``--seed`` (uint8-valued floats), the column passes at the product's
-segments (0: ``csrc/box_common.cuh``, col_seg: up to 128 rows, halved
-while the grid would hold fewer than 4 blocks per SM) and at 32, 64, 128
-and 256 rows, each by CUDA events around ITERS launches after WARMUP, the
-segments in turns (SEGS, then reversed) and averaged.  A chain's time at
-a segment length is the sum of its passes: both statistics passes and
-three applications.  Before timing, the six passes at the product's
-segments are held bitwise equal to the product's two entry points, and the
-output at every other segment length within 1e-3 of it (the float64 sums
-are taken in another order).
+segments (0: ``csrc/box_common.cuh``, col_launch: the rows of a strip of
+32 columns over as many segments as one wave of items over the card
+allows) and at 64, 128, 256 and 512 rows, each by CUDA events around
+ITERS launches after WARMUP, the segments in turns (SEGS, then reversed)
+and averaged.  A chain's time at a segment length is the sum of its
+passes: both statistics passes and three applications.  Before timing,
+the six passes at the product's segments are held bitwise equal to the
+product's two entry points, and the output at every other segment length
+within 1e-3 of it (the float64 sums are taken in another order).
 
 Needs a CUDA device: without one it exits nonzero and builds nothing.
 """
@@ -35,7 +35,7 @@ from ..ops import _build
 from ..ops import guided_chain_kernel as k9
 
 FRAMES = {"4K": (2160, 3840), "8K": (4320, 7680)}
-SEGS = (0, 32, 64, 128, 256)   # 0: the product's (col_seg)
+SEGS = (0, 64, 128, 256, 512)   # 0: the product's (col_launch)
 RADIUS, EPS, ITERATIONS = 45, 3.0, 3
 ITERS, WARMUP = 10, 2
 PASSES = ("stats cols", "stats rows", "moment cols", "solve rows", "ab cols",

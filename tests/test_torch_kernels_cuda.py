@@ -836,6 +836,65 @@ def test_sliding_row_passes_match_plain(dev, n, c, h, w, radius):
     assert d.max().item() <= 1 and (got - exp).abs().max().item() <= 0.05
 
 
+# (n, c, h, w, radius) for the streamed column pass: the 4K frame at C = 1
+# and C = 3 (its moment pass past the ring that holds the window: the
+# leaving rows streamed again), frames shorter than the window, widths
+# that are not a multiple of the 32-column strip (nor of 4: each lane
+# copies its own column), radii wider than the frame, n > 1, r = 0 and 1
+COLUMN_PASS_CASES = [(1, 1, 2160, 3840, 45), (1, 3, 2160, 3840, 45),
+                     (2, 1, 50, 96, 45), (1, 2, 37, 45, 20),
+                     (3, 1, 130, 70, 45), (1, 1, 12, 40, 100),
+                     (1, 3, 9, 33, 60), (2, 2, 64, 100, 1),
+                     (1, 1, 33, 64, 0)]
+
+
+@pytest.mark.parametrize("n,c,h,w,radius", COLUMN_PASS_CASES)
+def test_column_pass_streams_match_plain(dev, n, c, h, w, radius):
+    """K9's two entry points on the streamed column pass against their
+    plain versions in float64: the statistics within 1e-3 of each plane's
+    largest magnitude, one application from the kernel's statistics
+    within the chain's float and uint8 gate, each launched twice and held
+    bitwise equal."""
+    rng = np.random.RandomState(21)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, c, h, w) * 256).astype(
+        np.float32)).to(dev)
+    g64, s64 = g.double(), s.double()
+    st = k9.guide_stats(g, radius, 3.0)
+    assert torch.equal(st, k9.guide_stats(g, radius, 3.0))
+    stp = k9.guide_stats_plain(g64, radius, 3.0)
+    for k in range(k9.STAT_PLANES):
+        scale = stp[:, k].abs().max().item()
+        assert (st[:, k] - stp[:, k]).abs().max().item() <= 1e-3 * scale, k
+    del stp
+    one = k9.guided_apply_cached(st, g, s, radius)
+    assert torch.equal(one, k9.guided_apply_cached(st, g, s, radius))
+    assert _within_gate(one, k9.guided_apply_cached_plain(
+        st.double(), g64, s64, radius).float())
+
+
+def test_column_pass_serves_k4_and_k5(dev):
+    """K4's two passes (rows past the fused form's 512) and K5's four
+    passes take the same streamed column pass: against their plain
+    versions in float64, K4 within 8 float32 ulps of its window sum's
+    bound and K5 within 1 uint8 level and 0.05."""
+    rng = np.random.RandomState(22)
+    x = torch.from_numpy((rng.rand(3, 70, 700) * 255).astype(
+        np.float32)).to(dev)
+    got = box_filter_planar(x, 45, "reflect101", path="two-pass")
+    exp = box_filter_planar_plain(x.double(), 45, "reflect101").float()
+    assert (got - exp).abs().max().item() <= 8 * 2.0 ** -24 * 255
+    g = torch.from_numpy(np.floor(rng.rand(2, 3, 150, 610) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(2, 2, 150, 610) * 256).astype(
+        np.float32)).to(dev)
+    got = guided_filter_fused(g, s, 45, 3.0, path="four-pass")
+    exp = guided_filter_fused_plain(g.double(), s.double(), 45, 3.0).float()
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (got - exp).abs().max().item() <= 0.05
+
+
 def test_chain_passes_alone_are_the_entry_points(dev):
     """rf_guided_chain_pass (the passes timed apart): passes 0-5 at the
     product's segment are bitwise the two entry points; at the other
