@@ -33,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _build
 from ..ops.cnn_train_kernel import fits_fused_trunk, skip_trunk_pre
+from ..utils.profiling import span
 from .recover import recover_reflectance_shading
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -236,10 +238,13 @@ def matmul_precision(name: str):
 def conv2d(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
            pad: int = 0, stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """NHWC conv with an HWIO kernel and zero padding (caffe Convolution);
-    a 1x1 kernel at stride 1 without padding is a per-pixel matmul."""
+    a 1x1 kernel at stride 1 without padding is a per-pixel matmul.  The
+    convolutions (cuDNN's on a card), not the matmuls, count on
+    ``conv2d.launches``, replays of a captured step included."""
     k = params["kernel"]
     if k.shape[0] == 1 and k.shape[1] == 1 and pad == 0 and stride == 1:
         return x @ k[0, 0] + params["bias"]
+    _build.count(conv2d)
     y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
                  params["bias"], stride=stride, padding=pad,
                  dilation=dilation)
@@ -252,11 +257,17 @@ def deconv2d(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     JAX package's ``lax.conv_transpose`` of an HWIO kernel without
     ``transpose_kernel`` does not flip the kernel and
     ``F.conv_transpose2d`` does, so the kernel is flipped spatially here
-    and laid out [in, out, kh, kw]."""
+    and laid out [in, out, kh, kw].  Counts on ``deconv2d.launches``, as
+    :func:`conv2d` does."""
     k = params["kernel"].flip(0, 1).permute(2, 3, 0, 1)
+    _build.count(deconv2d)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k, params["bias"],
                            stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+conv2d.launches = 0
+deconv2d.launches = 0
 
 
 def bn_init(channels: int, device=None) -> Dict[str, torch.Tensor]:
@@ -560,6 +571,9 @@ def _init_unet(gen, cfg: NetworkConfig, device) -> Params:
 
 
 def _apply_unet(params, images, cfg: NetworkConfig):
+    """The spans ``unet.local``, ``unet.global`` and ``unet.up`` time the
+    streams' issue in eager calls; a captured step records them once, at
+    its capture (under ``fit.capture``), and its replays issue none."""
     p, n = cfg.kernel_pad, cfg.num_layers
 
     def block(name, x):
@@ -573,34 +587,37 @@ def _apply_unet(params, images, cfg: NetworkConfig):
         return torch.relu(conv2d(params[name + "_final"], x, pad=1))
 
     # down path (stride-2 convs)
-    l1 = torch.relu(block("d1", conv2d(params["Conv1"], images, pad=1,
-                                       stride=2)))
-    l2 = torch.relu(block("d2", conv2d(params["Conv2"], l1, pad=1,
-                                       stride=2)))
-    l3 = torch.relu(block("d3", conv2d(params["Conv3"], l2, pad=1,
-                                       stride=2)))
-    local = torch.relu(block("d4", conv2d(params["Conv4"], l3, pad=3)))
+    with span("unet.local"):
+        l1 = torch.relu(block("d1", conv2d(params["Conv1"], images, pad=1,
+                                           stride=2)))
+        l2 = torch.relu(block("d2", conv2d(params["Conv2"], l1, pad=1,
+                                           stride=2)))
+        l3 = torch.relu(block("d3", conv2d(params["Conv3"], l2, pad=1,
+                                           stride=2)))
+        local = torch.relu(block("d4", conv2d(params["Conv4"], l3, pad=3)))
 
     # global path on a fixed-size resize of the input: bilinear with
     # half-pixel centres, antialiased when it shrinks, as jax.image.resize
-    g = F.interpolate(images.permute(0, 3, 1, 2),
-                      size=(_UNET_GLOBAL_SIZE, _UNET_GLOBAL_SIZE),
-                      mode="bilinear", align_corners=False,
-                      antialias=True).permute(0, 2, 3, 1)
-    g = torch.relu(conv2d(params["Conv5"], g, pad=2, stride=4))
-    g = torch.relu(conv2d(params["Conv6"], g, pad=2, stride=4))
-    g = torch.relu(conv2d(params["Conv7"], g, pad=2, stride=4))
-    g = torch.relu(conv2d(params["Conv8"], g))
-    g = g.mean(dim=(1, 2), keepdim=True).expand(
-        tuple(local.shape[:3]) + (g.shape[-1],))
+    with span("unet.global"):
+        g = F.interpolate(images.permute(0, 3, 1, 2),
+                          size=(_UNET_GLOBAL_SIZE, _UNET_GLOBAL_SIZE),
+                          mode="bilinear", align_corners=False,
+                          antialias=True).permute(0, 2, 3, 1)
+        g = torch.relu(conv2d(params["Conv5"], g, pad=2, stride=4))
+        g = torch.relu(conv2d(params["Conv6"], g, pad=2, stride=4))
+        g = torch.relu(conv2d(params["Conv7"], g, pad=2, stride=4))
+        g = torch.relu(conv2d(params["Conv8"], g))
+        g = g.mean(dim=(1, 2), keepdim=True).expand(
+            tuple(local.shape[:3]) + (g.shape[-1],))
 
-    r3 = stage("comb", torch.cat([local, g], dim=-1))
-    r2 = stage("r2", torch.cat([l2, deconv2d(params["up3"], r3)], dim=-1))
-    r1 = stage("r1", torch.cat([l1, deconv2d(params["up2"], r2)], dim=-1))
-    x = torch.cat([images, deconv2d(params["up1"], r1)], dim=-1)
-    for i in range(n):
-        x = torch.relu(conv2d(params["out_{}".format(i)], x, pad=p))
-    return {"RS_est": conv2d(params["head"], x, pad=1)}
+    with span("unet.up"):
+        r3 = stage("comb", torch.cat([local, g], dim=-1))
+        r2 = stage("r2", torch.cat([l2, deconv2d(params["up3"], r3)], dim=-1))
+        r1 = stage("r1", torch.cat([l1, deconv2d(params["up2"], r2)], dim=-1))
+        x = torch.cat([images, deconv2d(params["up1"], r1)], dim=-1)
+        for i in range(n):
+            x = torch.relu(conv2d(params["out_{}".format(i)], x, pad=p))
+        return {"RS_est": conv2d(params["head"], x, pad=1)}
 
 
 # ---------------------------------------------------------------------------

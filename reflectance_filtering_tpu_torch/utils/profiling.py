@@ -67,9 +67,10 @@ _now = time.time_ns
 
 def _tracing_a_graph() -> bool:
     """A graph is being traced (torch.export, torch.compile): a span
-    there runs once, at tracing, not when the graph runs.  (No span lies
-    in code a CUDA graph captures; asking the card whether one is being
-    captured costs a CUDA call, which a profiler session traces.)"""
+    there runs once, at tracing, not when the graph runs.  (A span in code
+    that a CUDA graph captures, uNet's, records at the capture and never at
+    a replay; it is not skipped, since asking the card whether it is
+    capturing costs a CUDA call, which a profiler session traces.)"""
     return torch.compiler.is_compiling()
 
 
