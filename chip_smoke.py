@@ -85,8 +85,10 @@ Phases (any failure exits nonzero before the result line):
               and byte sizes printed;
   4c. chain   ops.guided.guided_filter_iterated(planar=True), the 3x chain
               of the JAX bench's config 4, on one 2160x3840 and one
-              4320x7680 frame (C=1), counters reset before each: K9 counted,
-              K5 not; the 4K result held against the plain chain;
+              4320x7680 frame (C=1), counters reset before each: K9 counted
+              and its fused kernels taken (.fused), K5 not; the 4K result
+              held against the plain chain, and one traced 4K chain issues
+              7 K9 launches (1 + 2 an iteration), all fused pairs;
   4t. train  train.loop.fit for 20 steps of batch 20 x 256x256, K = 1181,
               on a seeded synthetic set of 40 images resident on the card
               (fit's chunked trainer: an eager warm-up step, one capture of
@@ -298,6 +300,11 @@ SYMBOLIC_SHAPES = ((1, 3, 341, 512), (4, 3, 256, 256))
 # the 3x iterated guided chain (BASELINE.json config 4, bench.py:532-575)
 CHAIN_ITERS = 3
 CHAIN_FRAMES = {"4K": (2160, 3840), "8K": (4320, 7680)}
+# K9's kernel names (csrc/guided_chain.cu): the six passes and the fused
+# pairs (gc_stats_rows_fused, gc_solve_cached_rows_fused,
+# gf_apply_rows_fused) each contain one
+K9_KERNEL_NAMES = ("gf_moment_cols", "gc_stats_rows", "gc_solve_cached_rows",
+                   "col_sum_kernel", "gf_apply_rows")
 PROFILE_BATCHES = 5
 # the training slice: the JAX bench's training shape (bench.py:596-634)
 TB, TRAIN_N, TRAIN_VAL_N, TRAIN_STEPS = 20, 40, 20, 20
@@ -2183,9 +2190,11 @@ def main():
     def reset_launches():
         for fn in wrappers.values():
             fn.launches = 0
-        # the fused forms' launches, counted apart (K4, K5)
+        # the fused forms' launches, counted apart (K4, K5, K9)
         box_filter_planar.fused_launches = 0
         guided_filter_fused.fused_launches = 0
+        guide_stats.fused = 0
+        guided_apply_cached.fused = 0
 
     def read_launches(run, names):
         torch.cuda.synchronize()
@@ -2330,6 +2339,13 @@ def main():
                 ("guide_stats", "guided_apply_cached"))
             check(chain_launches[name]["guided_filter"] == 0,
                   "K5 not launched by the {} chain".format(name))
+            print("{} chain: K9's fused launches: statistics {}, "
+                  "applications {}".format(name, guide_stats.fused,
+                                           guided_apply_cached.fused))
+            check(guide_stats.fused == 1
+                  and guided_apply_cached.fused == CHAIN_ITERS,
+                  "the {} chain took K9's fused kernels (.fused counted "
+                  "for the statistics and each application)".format(name))
             check(q.shape == (1, 1, fh, fw) and bool(torch.isfinite(q).all())
                   and torch.unique(torch.round(q)).numel() > 20,
                   "{} chain output [1, 1, {}, {}], finite, real work".format(
@@ -2343,6 +2359,21 @@ def main():
                                                                     levels))
                 check(close and levels <= 1, "4K chain: rtol 1e-3 / atol "
                       "0.05, <= 1 uint8 level against the plain chain")
+                # one traced 4K chain: K9's kernels are the fused pairs, one
+                # for the statistics and two an application, so no column
+                # sum plane reaches device memory
+                from reflectance_filtering_tpu_torch.utils.profiling import (
+                    profile_calls)
+                traced = profile_calls(lambda: guided_filter_iterated(
+                    g_in, s_in, GF_R, GF_EPS, CHAIN_ITERS, planar=True), 3)[0]
+                k9_names = [n for n, _, _ in traced[-1]
+                            if any(k in n for k in K9_KERNEL_NAMES)]
+                print("4K chain, one traced call: {} K9 launches: {}".format(
+                    len(k9_names), sorted({n[:60] for n in k9_names})))
+                check(len(k9_names) == 1 + 2 * CHAIN_ITERS
+                      and all("fused" in n for n in k9_names),
+                      "the 4K 3x chain issues {} K9 launches, each a fused "
+                      "pair".format(1 + 2 * CHAIN_ITERS))
             chain_data[name] = (g_in, s_in)
 
     phase("4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "

@@ -66,6 +66,8 @@ _SIGNATURES = {
     # stream
     "rf_guided_chain_pass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P],
+    # pass, c, n, h, w, radius, seg, plan[8] (no stream: a host-side query)
+    "rf_guided_chain_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # joint, src, out, tables, n, cj, cs, h, w, self_guided, u8, radius,
     # gcc, gsc, stream
     "rf_bilateral_joint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -17,8 +17,17 @@ cached across calls.
 The plain versions compute the same with the plain box (ops/boxfilter.py);
 the kernel sums its windows in float64, so the two agree to the plain
 box's float32 rounding, not bitwise.
+
+On CUDA each column-then-row pair runs as one fused kernel where the
+shape fits its shared memory (:func:`fused_route`; the radius bounds it:
+about 100 for the statistics, 200 for an application at C = 1), else as
+two passes through scratch column sums.
+``.launches`` counts the wrappers' launches and ``.fused`` those that took
+the fused kernels.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -75,11 +84,56 @@ def guided_filter_chain_plain(guide: torch.Tensor, src: torch.Tensor,
     return src
 
 
+PLAN_FIELDS = ("ok", "cluster", "columns", "band_rows", "tile", "rows",
+               "ring", "smem")
+_plans = {}  # (device index, pass, c, n, h, w, radius, seg) -> plan
+
+
+def fused_plan(device: torch.device, pass_: int, c: int, n: int, h: int,
+               w: int, radius: int, seg: int = 0) -> dict:
+    """The plan of K9's fused pass ``pass_`` (6 the statistics, 7 the
+    solve, 8 the apply; ``rf_guided_chain_plan``) at ``c`` <= 3 channels
+    on ``device`` for n images of h x w at ``radius``, blocks of ``seg``
+    rows (0: the plan's): {"ok": the fused kernel takes the shape,
+    "cluster": blocks a cluster, "columns": column sums a block,
+    "band_rows", "tile": output columns a cluster, "rows": a block's rows,
+    "ring": the ring's slots, "smem": bytes a block}; kept per shape."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    key = (index, pass_, c, n, h, w, radius, seg)
+    if key not in _plans:
+        out = (ctypes.c_int * len(PLAN_FIELDS))()
+        handle = _build.lib()
+        with torch.cuda.device(index):
+            rc = handle.rf_guided_chain_plan(pass_, c, n, h, w, radius, seg,
+                                             ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError("rf_guided_chain_plan failed: CUDA error {} "
+                               "({})".format(rc, handle.rf_error_string(rc)
+                                             .decode()))
+        _plans[key] = dict(zip(PLAN_FIELDS, out))
+    return _plans[key]
+
+
+def fused_route(device: torch.device, stage: int, c: int, n: int, h: int,
+                w: int, radius: int) -> bool:
+    """Whether :func:`guide_stats` (stage 0) or one launch of
+    :func:`guided_apply_cached` on ``c`` <= 3 channels (stage 1) takes
+    K9's fused kernels: where their plans (:func:`fused_plan`, the
+    kernel's own choice by shape and the device's shared memory and
+    clusters) take the shape, as the entry points decide."""
+    passes = (6,) if stage == 0 else (7, 8)
+    return all(fused_plan(device, p, c, n, h, w, radius)["ok"]
+               for p in passes)
+
+
 def guide_stats(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
     """The guide's statistics for :func:`guided_apply_cached`: guide
     [N, 3, H, W] float32 -> [N, 9, H, W] = [mI0 mI1 mI2 | d00 d01 d02 d11
     d12 d22].  A CPU tensor runs :func:`guide_stats_plain`; a CUDA tensor
-    launches the kernel's statistics passes."""
+    launches the kernel's statistics: the fused kernel where
+    :func:`fused_route` says so, else two passes through scratch column
+    sums."""
     check_guided(guide, radius)
     if guide.device.type == "cpu":
         return guide_stats_plain(guide, radius, eps)
@@ -89,11 +143,14 @@ def guide_stats(guide: torch.Tensor, radius: int, eps) -> torch.Tensor:
     stats = torch.empty((n, STAT_PLANES, h, w), dtype=torch.float32,
                         device=guide.device)
     if stats.numel():
-        mom = torch.empty_like(stats)
+        fused = fused_route(guide.device, 0, 1, n, h, w, radius)
+        mom = None if fused else torch.empty_like(stats)
         _build.launch("rf_guide_stats", guide.device, guide.data_ptr(),
-                      stats.data_ptr(), mom.data_ptr(), n, h, w, radius,
-                      float(eps))
+                      stats.data_ptr(), None if fused else mom.data_ptr(), n,
+                      h, w, radius, float(eps))
         _build.count(guide_stats)
+        if fused:
+            _build.count(guide_stats, "fused")
     return stats
 
 
@@ -103,8 +160,9 @@ def guided_apply_cached(stats: torch.Tensor, guide: torch.Tensor,
     statistics ``stats`` (from :func:`guide_stats` with the same guide and
     radius) -> [N, C, H, W].  A CPU tensor runs
     :func:`guided_apply_cached_plain`; a CUDA tensor launches the kernel's
-    application passes, src channels in groups of at most three (one
-    launch each)."""
+    application (two fused kernels where :func:`fused_route` says so, else
+    four passes), src channels in groups of at most three (one launch
+    each)."""
     check_guided(guide, radius, (("stats", stats), ("src", src)))
     if stats.shape[1] != STAT_PLANES:
         raise ValueError("stats must have {} planes, got {}".format(
@@ -117,16 +175,21 @@ def guided_apply_cached(stats: torch.Tensor, guide: torch.Tensor,
     check_grid("guided_apply_cached", n, h, w, 4 * group)
     if not src.numel():
         return torch.empty_like(src)
-    mom = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
-                      device=src.device)
-    ab = torch.empty_like(mom)
+    fused = {k: fused_route(src.device, 1, k, n, h, w, radius)
+             for k in {min(3, c - g) for g in range(0, c, 3)}}
+    ab = torch.empty((n, 4 * group, h, w), dtype=torch.float32,
+                     device=src.device)
+    mom = None if all(fused.values()) else torch.empty_like(ab)
 
     def launch(s, o):
+        k = s.shape[1]
         _build.launch("rf_guided_apply_cached", src.device, stats.data_ptr(),
                       guide.data_ptr(), s.data_ptr(), o.data_ptr(),
-                      mom.data_ptr(), ab.data_ptr(), n, s.shape[1], h, w,
-                      radius)
+                      None if fused[k] else mom.data_ptr(), ab.data_ptr(), n,
+                      k, h, w, radius)
         _build.count(guided_apply_cached)
+        if fused[k]:
+            _build.count(guided_apply_cached, "fused")
 
     return by_channel_groups(src, launch)
 
@@ -149,4 +212,6 @@ def guided_filter_chain(guide: torch.Tensor, src: torch.Tensor, radius: int,
 
 
 guide_stats.launches = 0
+guide_stats.fused = 0
 guided_apply_cached.launches = 0
+guided_apply_cached.fused = 0

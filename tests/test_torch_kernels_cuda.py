@@ -896,25 +896,102 @@ def test_column_pass_serves_k4_and_k5(dev):
 
 
 def test_chain_passes_alone_are_the_entry_points(dev):
-    """rf_guided_chain_pass (the passes timed apart): passes 0-5 at the
-    product's segment are bitwise the two entry points; at the other
-    segments tried within 1e-3; a pass or segment out of range raises."""
+    """rf_guided_chain_pass (the passes timed apart): the fused pairs
+    (passes 6-8) at their plan's segments are bitwise the two entry points
+    (which take them at this shape), and within 1e-3 at the other segments
+    tried; the six passes (0-5) within 1e-3 at every segment tried, and
+    bitwise the entry points at a radius past the fused kernels' (r = 300,
+    where the entry points run them); a pass or segment out of range, or a
+    fused pass at that radius, raises."""
     from reflectance_filtering_tpu_torch.scripts import measure_k9_passes
-    buf = measure_k9_passes.make_buffers(dev, 3, 300, 1500)
-    stats = k9.guide_stats(buf["guide"], measure_k9_passes.RADIUS,
-                           measure_k9_passes.EPS)
-    want = k9.guided_apply_cached(stats, buf["guide"], buf["src"],
-                                  measure_k9_passes.RADIUS)
-    for seg in measure_k9_passes.SEGS:
-        for p in range(6):
-            measure_k9_passes.run_pass(p, seg, buf)
+    mk = measure_k9_passes
+    buf = mk.make_buffers(dev, 3, 300, 1500)
+    for seg in mk.FUSED_SEGS:
+        err = mk.run_route(mk.FUSED_PASSES, seg, buf)
         if seg == 0:                     # the product's segments
-            assert torch.equal(buf["stats"], stats)
-            assert torch.equal(buf["out"], want)
-        assert (buf["out"] - want).abs().max().item() <= 1e-3
-    for p, seg in ((6, 32), (0, -1)):
+            assert torch.equal(buf["stats"], buf["want_stats"])
+            assert torch.equal(buf["out"], buf["want_out"])
+        assert err <= 1e-3
+    for seg in mk.SEGS:
+        assert mk.run_route(range(6), seg, buf) <= 1e-3
+    big = 300
+    assert not k9.fused_route(dev, 0, 1, 1, 300, 1500, big)
+    assert not k9.fused_route(dev, 1, 1, 1, 300, 1500, big)
+    mk.run_route(range(6), 0, buf, big)
+    assert torch.equal(buf["stats"], buf["want_stats"])
+    assert torch.equal(buf["out"], buf["want_out"])
+    for p, seg, radius in ((9, 32, 45), (0, -1, 45), (6, 0, big)):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            measure_k9_passes.run_pass(p, seg, buf)
+            mk.run_pass(p, seg, buf, radius)
+
+
+# (n, c, h, w, radius) for K9's fused pairs: widths that are a multiple of
+# neither a block's columns nor a cluster's tile (several tiles and
+# clusters, their edges), frames narrower than the window and radii wider
+# than the frame, n > 1, r = 0 and 1, C = 1, 2, 3, and the 4K frame at
+# C = 1 and 3
+FUSED_CASES = [(1, 1, 70, 1001, 45), (2, 2, 50, 96, 45),
+               (1, 3, 41, 2050, 20), (1, 1, 12, 40, 45), (1, 2, 37, 45, 60),
+               (1, 1, 130, 700, 1), (1, 3, 33, 64, 0), (3, 1, 64, 300, 8),
+               (1, 1, 2160, 3840, 45), (1, 3, 2160, 3840, 45)]
+
+
+@pytest.mark.parametrize("n,c,h,w,radius", FUSED_CASES)
+def test_fused_pairs_match_plain(dev, n, c, h, w, radius):
+    """K9's fused pairs (the route their plans take at these shapes,
+    counted on .fused) against the plain versions in float64: the
+    statistics within 1e-3 of each plane's largest magnitude, one
+    application from the kernel's statistics within the chain's float and
+    uint8 gate, each launched twice and held bitwise equal."""
+    rng = np.random.RandomState(23)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy((rng.rand(n, c, h, w) * 255).astype(
+        np.float32)).to(dev)
+    groups = [min(3, c - i) for i in range(0, c, 3)]
+    assert k9.fused_route(dev, 0, 1, n, h, w, radius)
+    assert all(k9.fused_route(dev, 1, k, n, h, w, radius) for k in groups)
+    before = (k9.guide_stats.fused, k9.guided_apply_cached.fused)
+    st = k9.guide_stats(g, radius, 3.0)
+    assert torch.equal(st, k9.guide_stats(g, radius, 3.0))
+    one = k9.guided_apply_cached(st, g, s, radius)
+    assert torch.equal(one, k9.guided_apply_cached(st, g, s, radius))
+    assert (k9.guide_stats.fused, k9.guided_apply_cached.fused) == (
+        before[0] + 2, before[1] + 2 * len(groups))
+    g64 = g.double()
+    stp = k9.guide_stats_plain(g64, radius, 3.0)
+    for k in range(k9.STAT_PLANES):
+        scale = stp[:, k].abs().max().item()
+        assert (st[:, k] - stp[:, k]).abs().max().item() <= 1e-3 * scale, k
+    del stp
+    assert _within_gate(one, k9.guided_apply_cached_plain(
+        st.double(), g64, s.double(), radius).float())
+
+
+def test_fused_route_by_shape(dev):
+    """The route is the shape's: the 4K frame (r = 45, C = 1) has a plan
+    for each fused pair and takes them; at a radius past what a block's
+    ring and bands hold (r = 300) the statistics and the applications run
+    the six passes (counted on .launches, not on .fused), within the
+    chain's gate of the plain chain in float64."""
+    assert all(k9.fused_plan(dev, p, 1, 1, 2160, 3840, 45)["ok"]
+               for p in (6, 7, 8))
+    assert k9.fused_route(dev, 0, 1, 1, 2160, 3840, 45)
+    assert k9.fused_route(dev, 1, 1, 1, 2160, 3840, 45)
+    rng = np.random.RandomState(24)
+    g = torch.from_numpy(np.floor(rng.rand(1, 3, 40, 700) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(1, 1, 40, 700) * 256).astype(
+        np.float32)).to(dev)
+    assert not k9.fused_route(dev, 0, 1, 1, 40, 700, 300)
+    assert not k9.fused_route(dev, 1, 1, 1, 40, 700, 300)
+    counters = (k9.guide_stats, k9.guided_apply_cached)
+    before = [(f.launches, f.fused) for f in counters]
+    chain = k9.guided_filter_chain(g, s, 300, 3.0, 3)
+    assert [(f.launches, f.fused) for f in counters] == [
+        (before[0][0] + 1, before[0][1]), (before[1][0] + 3, before[1][1])]
+    assert _within_gate(chain, k9.guided_filter_chain_plain(
+        g.double(), s.double(), 300, 3.0, 3).float())
 
 
 def test_train_cli_decompose_on_cuda_matches_cpu(dev, tmp_path):
