@@ -10,10 +10,7 @@ Phases (any failure exits nonzero before the result line):
               csrc/, one process per source (build seconds, the compiler's
               register report), and the machine code is read (cuobjdump):
               K2's uint8 instantiation issues no MUFU.EX2, the float one
-              some, and so do K6's five uint8 and four float ones (each
-              float instantiation's instruction and MUFU.EX2 counts printed
-              beside its first port's, built by
-              reflectance_filtering_tpu_torch/scripts/measure_k6_float.py);
+              some, and so do K6's five uint8 and four float ones;
               K1 issues HMMA .TF32 (3xTF32 on the tensor cores) and no FFMA
               on a constant-bank weight (its instruction count is printed),
               and so do K7's backward and every instantiation of its
@@ -60,7 +57,10 @@ Phases (any failure exits nonzero before the result line):
               20 x 256x256: the full variant bitwise equal to the product
               backward, the four with phases removed within 2e-4 of each
               leaf's max of their plain versions, the block sum alone
-              bitwise equal to the workspace rows summed in order;
+              bitwise equal to the workspace rows summed in order, its 6
+              launches counted (the kernels line's launches of kernel 19:
+              this phase, at measure_train_bwd_split's SHAPE and PIXELS,
+              is its run);
   3b. parity  the guided filter on cuda against the golden fixtures
               (tests/fixtures/guided_golden.npz), every r in {3, 45, 52} x
               eps in {3, 7} x color/colorsrc/gray, each <= 1 uint8 level;
@@ -128,8 +128,7 @@ Phases (any failure exits nonzero before the result line):
               against the single-device kernels: K2 gray-self and K6
               color-self and BF(gray, photo) at c20 s22 bitwise, K5 at
               r=45 eps=3, K4 at r=45 and the 3x chain K9 within the JAX
-              package's sharded gates, each rank's launches printed and
-              the halo exchange and each rank's kernel timed; gloo at
+              package's sharded gates, each rank's launches printed; gloo at
               world size 4, the 3x chain on 4320x7680 (1,920 columns a
               rank); NCCL at world size 1, one sharded step and one
               sharded filter (K2 bitwise);
@@ -173,72 +172,17 @@ Phases (any failure exits nonzero before the result line):
               within 1 uint8 level, every npz array within 1e-4, the five
               movie files (the triptych 3x as wide), both 0command.txt,
               the unreadable file reported; the image decoder printed;
-  6. times    CUDA-event times of each kernel and its plain version (and of
-              the one PyTorch call computing the same function, where there
-              is one, K3's and K8's in turns with the kernel's wrapper,
-              medians of 7; K2 on uint8 levels and on float32, and its range
-              table in the product's layout against two others,
-              reflectance_filtering_tpu_torch/scripts/
-              measure_k2_table.py; K6's uint8 range table likewise,
-              measure_k6_table.py; K6's float form in its product geometry
-              beside its first port, three other geometries and the
-              factored weight, measure_k6_float.py), both slices'
-              images/s, each phase 4e artifact's ms per batch in turns
-              with its pipeline_fn, the MP/s of the color-self and
-              BF(reflectance, photo) bilateral, and the training step's ms
-              and images/s on the kernels and on the plain versions, the
-              3x chain's ms and MP/s at 4K and 8K on K9 and as three K5
-              calls, each K9 launch's ms, K9's six passes timed apart at 4K
-              and 8K with the column passes at the product's segments and
-              at 64, 128, 256 and 512 rows
-              (reflectance_filtering_tpu_torch/scripts/
-              measure_k9_passes.py), and K7's backward split by phase
-              (reflectance_filtering_tpu_torch/scripts/
-              measure_train_bwd_split.py: each variant's median ms, each
-              phase's delta beside its bound, the product backward's time
-              and each instantiation's registers), and K5's two paths and
-              K4's two forms in turns over bands and frame shapes
-              (reflectance_filtering_tpu_torch/scripts/
-              measure_box_guided.py), K8's sort path and quadratic search
-              in turns, wrapper and device times, on the training step's
-              points spread and crowded and on three other shapes
-              (reflectance_filtering_tpu_torch/scripts/measure_k8.py);
-              fit's steady ms per step and images/s at 20 x 256x256, K =
-              1181, the set resident (chunked) and host-fed (per-step) in
-              turns, and the host's ms to issue an eager and a replayed step
-              (reflectance_filtering_tpu_torch/scripts/
-              measure_fit_steady.py, printed again in phase 7 beside the
-              step's busy time); the decompose path from phase 5's snapshot:
-              predict_batched of 16 frames of 1080x1920 in batches of 8
-              (frames/s on the host's clock; finite, frame 0 within 1e-4 of
-              the plain per-layer path on the card) and K7's forward at a
-              batch's 16.6 M pixels beside its bound, and
-              decompose_images_batched on 32 PNGs of 768x1024 (wall
-              seconds split into decode, device and write) (not gated);
-              the bilateral grid's MP/s at 32 x 256x256 (its default,
-              quality and fast cells; plain torch ops) beside K2's, and
-              phase 4p's halo exchange and per-rank kernel times (two
-              processes sharing one card, not a multi-card figure);
-  7. profile  each slice's, the training step's and the 4K chain's device
-              busy time and per-kernel device times (torch.profiler after
-              warm-up calls, every call's kernels the same, else taken
-              again: utils/profiling.py::profile_calls; the busy time no
-              longer than phase 6's wall time plus 3%, K2's trace time in
-              the bf slice within 5% of its CUDA-event time; beside them,
-              how many records a session with no warm-up calls lost),
-              and the idle share against phase 6's time in the same run
-              (a resident fit's against a replayed step's busy time; K8's
-              kernel and the memsets apart in the step's split); K4's
-              and K5's calls split into their kernels by each path; K3's
-              device time at 32 x 1181 beside indexing's, and the host's
-              microseconds per K3 call split into checks, allocation and
-              launch (host clock around 1,000 calls), K1's on one
-              256-pixel row by its wrapper, its rf:: operator alone and the
-              bare launch, and the symbolic cnn artifact's on one 16x16
-              photo beside decompose_planar's (not gated).
+              then, from the same snapshot, predict_batched of 16 frames of
+              1080x1920 in batches of 8 (finite, K7's forward once a batch,
+              frame 0 within 1e-4 of the plain per-layer path on the card)
+              and decompose_images_batched on 32 PNGs of 768x1024 (every
+              PNG written).
 
 Each phase's header shows the seconds since the script started; the line
-before the kernels line, the whole run's.
+before the kernels line, the whole run's.  This script times no kernel:
+the benchmark (BENCHMARK.json, benchmark/) measures, and each
+reflectance_filtering_tpu_torch/scripts/measure_*.py times one kernel's
+alternatives when run alone with python -m.
 
 The second-to-last line is {"kernels": [...]} with each kernel's launches in
 the run of its path (K1-K3: bf serving; K5: gf serving; K4: the guided CLI;
@@ -246,25 +190,17 @@ K6's three wrappers: the bilateral CLI's BF(reflectance, photo) and
 color-self runs, and the direct joint_bilateral_filter_fast call; K7's
 forward and backward and K8: the 20 training steps, the warm-up step's
 launches and the replays' as the capture recorded them; K9's two wrappers:
-the
-4K chain; K7's split: its run in phase 6), its measured error and
-times, and its bound: the larger of the bytes it must move over 3.35 TB/s
-and its operations, each kind over its rate: float32 operations over 66.9
-TFLOP/s (132 SMs x 128 lanes x 2 x 1.98 GHz), float32 MACs of matrix
-products (K1, K7) as 3xTF32 over 494.7 / 6 T/s (three TF32 products a MAC
-on the tensor cores), float64 adds (the box sums of K4, K5, K9) over 16.7
-T/s (64 per SM per clock), expf over the SFU's 4.18 T/s (16 per SM per
-clock), shared-memory table loads over 8.36 T/s (32 four-byte words per SM
-per clock); the last line is {"ok": true, "device": {...}}.
+the 4K chain; K7's split: phase 3t) and its measured error; the last line is
+{"ok": true, "device": {...}}.
 """
 import argparse
+import collections
 import contextlib
 import io
 import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -305,7 +241,6 @@ CHAIN_FRAMES = {"4K": (2160, 3840), "8K": (4320, 7680)}
 # gf_apply_rows_fused) each contain one
 K9_KERNEL_NAMES = ("gf_moment_cols", "gc_stats_rows", "gc_solve_cached_rows",
                    "col_sum_kernel", "gf_apply_rows")
-PROFILE_BATCHES = 5
 # the training slice: the JAX bench's training shape (bench.py:596-634)
 TB, TRAIN_N, TRAIN_VAL_N, TRAIN_STEPS = 20, 40, 20, 20
 TRAIN_FLAGS = ["--networkType=convStaticSkipLayers", "--numLayers=5",
@@ -340,32 +275,10 @@ K8_WIDE = (1, 1024, 2048)
 DEC_PNGS = [(4, 256, 256), (2, 341, 512), (1, 97, 131)]
 DEC_NPZ = (4, 64, 64)
 DEC_MOVIE = (12, 240, 320)
-# phase 6: full frames through predict_batched, PNGs through
+# phase 5d's full sizes: frames through predict_batched, PNGs through
 # decompose_images_batched
 FRAMES, FRAME_HW, FRAME_BATCH = 16, (1080, 1920), 8
 PNG_N, PNG_HW = 32, (768, 1024)
-# the card's peak rates for the bounds (H100 SXM); the float32 and memory
-# rates are the split script's (F32_FLOP_S, HBM_BYTES_S)
-SFU_S = 132 * 16 * 1.98e9                 # 4.18 T expf/s
-SMEM_LOADS_S = 132 * 32 * 1.98e9          # 8.36 T shared-memory loads/s
-
-
-def bound(flops=0.0, sfu=0.0, loads=0.0, nbytes=0.0, tf32_macs=0.0,
-          f64_adds=0.0):
-    """(least ms the card could take, "operations" or "bytes")."""
-    from reflectance_filtering_tpu_torch.scripts.measure_train_bwd_split \
-        import F32_FLOP_S, F64_ADD_S, HBM_BYTES_S, TF32X3_MAC_S
-    ops = max(flops / F32_FLOP_S, sfu / SFU_S, loads / SMEM_LOADS_S,
-              tf32_macs / TF32X3_MAC_S, f64_adds / F64_ADD_S)
-    mem = nbytes / HBM_BYTES_S
-    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
-
-
-def trunk_fmas(shape):
-    """(matrix-product MACs, fuse FMAs) per pixel of K7's forward and K1
-    (the backward's are the split script's phase_fmas)."""
-    n, ci, f, cout = shape
-    return ci * f + (n - 1) * f * f, n * f * cout
 
 
 def training_set(seed, n, k, h=H, w=W):
@@ -448,113 +361,10 @@ def stats_gate(got, exp):
                 / exp[:, k].abs().max()).item() for k in range(exp.shape[1]))
 
 
-def time_ms(fn, iters, warmup=1):
-    """Mean device time of fn() in ms, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def time_turns(fn_a, fn_b, iters, rounds=7):
-    """(median ms of fn_a, of fn_b) by :func:`time_ms` over ``rounds``
-    turns, the first of each pair alternating (a b, b a, a b, ...)."""
-    times_a, times_b = [], []
-    for r in range(rounds):
-        pair = [(fn_a, times_a), (fn_b, times_b)]
-        for fn, out in (pair if r % 2 == 0 else pair[::-1]):
-            out.append(time_ms(fn, iters))
-    return statistics.median(times_a), statistics.median(times_b)
-
-
-def device_profile(fn, batches):
-    """Device time of fn() per call in ms, from torch.profiler over
-    ``batches`` calls (``utils.profiling.profile_calls``: after its warm-up
-    calls, each call's kernels checked against the others'): the busy time
-    (the union of every kernel's and copy's interval on the card) and each
-    kernel's total."""
-    from reflectance_filtering_tpu_torch.utils.profiling import (
-        profile_calls)
-    try:
-        per_call = profile_calls(fn, batches)[0]
-    except RuntimeError as exc:
-        check(False, str(exc))
-    busy, per_kernel, _ = device_spans(
-        [event for call in per_call for event in call])
-    return (busy / batches,
-            {k: v / batches for k, v in per_kernel.items()})
-
-
-def device_spans(events):
-    """From device events (name, start µs, end µs): (the card's busy ms,
-    the union of their intervals; each name's total ms; each name's
-    count)."""
-    busy, last, per_kernel, counts = 0.0, float("-inf"), {}, {}
-    for start, end, name in sorted((start, end, name)
-                                   for name, start, end in events):
-        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3
-        counts[name] = counts.get(name, 0) + 1
-        busy += max(0.0, end - max(start, last))
-        last = max(last, end)
-    return busy / 1e3, per_kernel, counts
-
-
-def host_us(fn, calls=1000):
-    """Host microseconds per call of fn(): the host clock around ``calls``
-    calls and one synchronize, after one call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e6 / calls
-
-
-def launch_before(name, device, *args):
-    """The kernel launch as ops/_build.py made it before its entry points
-    were resolved once (the yardstick of phase 7's host split)."""
-    from reflectance_filtering_tpu_torch.ops import _build
-    handle = _build.lib()
-    with torch.cuda.device(device):
-        rc = getattr(handle, name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("{} failed: CUDA error {}".format(name, rc))
-
-
 def sass_lines(fn):
     """The instruction lines of one function in cuobjdump -sass output."""
     return [line for line in fn.splitlines()
             if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line)]
-
-
-def loop_per_ex2(fn):
-    """(instructions, MUFU.EX2) of the smallest loop of one function's
-    machine code that holds a MUFU.EX2 (from a backward branch's target to
-    the branch): in K6's float form, a pixel-tap is one MUFU.EX2."""
-    lines = sass_lines(fn)
-    addr = [int(re.match(r"\s+/\*([0-9a-f]+)\*/", line).group(1), 16)
-            for line in lines]
-    at = {a: i for i, a in enumerate(addr)}
-    best = (0, 0)
-    for i, line in enumerate(lines):
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", line)
-        j = at.get(int(m.group(1), 16)) if m else None
-        if j is None or j >= i:
-            continue
-        ex2 = sum("MUFU.EX2" in body for body in lines[j:i + 1])
-        if ex2 and (not best[1] or i - j + 1 < best[0]):
-            best = (i - j + 1, ex2)
-    return best
 
 
 def u8(t):
@@ -572,7 +382,9 @@ def box_tol(shape, radius):
 
 def check_training_kernels(dev, seed):
     """Phase 3t: K7 and K8 against their plain versions on the card.
-    Returns the flagship's errors and its inputs, kept for phase 6."""
+    Returns the flagship's errors and the launches of K7's backward split
+    (TPU kernel 19): this phase, at the split's own shape
+    (measure_train_bwd_split.SHAPE on its PIXELS), is that kernel's run."""
     from reflectance_filtering_tpu_torch.models.networks import (
         NetworkConfig, init_network)
     from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
@@ -637,6 +449,7 @@ def check_training_kernels(dev, seed):
     work = k7.backward_workspace(x, shape)
     product, _ = k7.trunk_backward(x, g, flat, shape, False)
     worst = 0.0
+    k7.trunk_backward_variant.launches = 0
     for variant, name in enumerate(k7.BWD_VARIANTS[:5]):
         got = k7.trunk_backward_variant(x, g, flat, shape, variant, work)
         want = k7.trunk_backward_variant_plain(x, g, flat, shape, variant)
@@ -658,6 +471,9 @@ def check_training_kernels(dev, seed):
     check(torch.equal(summed, k7.block_sum_plain(work, shape))
           and torch.equal(summed, got), "K7 split: the block sum alone "
           "bitwise equal to the workspace rows summed in block order")
+    split_launches = k7.trunk_backward_variant.launches
+    check(split_launches == 6, "K7 split: 6 launches counted (5 variants "
+          "and the block sum), {} seen".format(split_launches))
     errs["cnn_train_bwd_split"] = worst
 
     # K8 at the training step's shapes, half of the points inside a 12x12
@@ -716,8 +532,7 @@ def check_training_kernels(dev, seed):
           "path's limit, within 1e-6 of index_put_(accumulate=True)".format(
               qk))
     errs["whdr_scatter"] = err
-    keep["scatter"] = (idx, g1, g2)
-    return errs, keep
+    return errs, split_launches
 
 
 def decompose_inputs(folder, seed):
@@ -765,9 +580,8 @@ def trace_replayed_chunk(dev, seed, data):
     (the warm-up step, the capture, the replays), then chunks of replays
     only: one counted by the wrappers, then those of profile_calls.
     Returns the graph launches in each of the profile's two kept chunks,
-    each training kernel's launches on the card (the last of them) and on
-    its wrapper's counter in a chunk, and the device busy ms and ms by
-    kernel name a step."""
+    and each training kernel's launches on the card (the last of them) and
+    on its wrapper's counter in a chunk."""
     from reflectance_filtering_tpu_torch.models.networks import (
         NetworkConfig, init_network)
     from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
@@ -796,7 +610,7 @@ def trace_replayed_chunk(dev, seed, data):
     counted = {part: wrappers[counter].launches - before[counter]
                for part, (_, _, counter) in TRAIN_STEP_KERNELS.items()}
     per_call, events = profile_calls(lambda: chunk(k, 0, k), 2)
-    busy, per_kernel, kernels = device_spans(per_call[-1])
+    kernels = collections.Counter(name for name, _, _ in per_call[-1])
     # the graph launches in each kept chunk's profiler step (host clock)
     steps = sorted({(e.time_range.start, e.time_range.end) for e in events
                     if e.name.startswith("ProfilerStep")
@@ -809,14 +623,11 @@ def trace_replayed_chunk(dev, seed, data):
                                       if key in name)
                             for part, (key, _, _) in
                             TRAIN_STEP_KERNELS.items()},
-            "counted": counted,
-            "busy": busy / k,
-            "per kernel": {name: ms / k for name, ms in per_kernel.items()}}
+            "counted": counted}
 
 
 def check_chunked_fit(dev, seed, data):
-    """Phase 4t's chunked-trainer gates on the flagship at TB x 256x256,
-    returning a replayed step's device busy ms and ms by kernel name:
+    """Phase 4t's chunked-trainer gates on the flagship at TB x 256x256:
     fit's chunked trainer (the set resident) against its per-step trainer
     (DEVICE_FEED_BUDGET_BYTES = 0) over CHUNK_RUN_STEPS steps with a
     checkpoint every CHUNK_CKPT_STEPS (the same snapshots, params within
@@ -836,7 +647,7 @@ def check_chunked_fit(dev, seed, data):
                         random_seed=seed, device=dev, **kw)
 
     with tempfile.TemporaryDirectory() as tmp:
-        states, snaps, times, cks = {}, {}, {}, {}
+        states, snaps, cks = {}, {}, {}
         budget = loop.DEVICE_FEED_BUDGET_BYTES
         for label, feed in (("chunked", budget), ("per-step", 0)):
             ck = cks[label] = Checkpointer(os.path.join(tmp, label), "smoke",
@@ -844,20 +655,16 @@ def check_chunked_fit(dev, seed, data):
             os.makedirs(ck.snapshot_dir)
             loop.DEVICE_FEED_BUDGET_BYTES = feed
             try:
-                t0 = time.perf_counter()
                 states[label] = run(CHUNK_RUN_STEPS, checkpointer=ck)
-                times[label] = time.perf_counter() - t0
             finally:
                 loop.DEVICE_FEED_BUDGET_BYTES = budget
             snaps[label] = sorted(os.listdir(ck.snapshot_dir))
         diff = max_param_diff(states["chunked"].params,
                               states["per-step"].params)
-        print("fit, {} steps, a checkpoint every {}: chunked {:.3f} s, "
-              "per-step (host-fed) {:.3f} s on the host's clock (set-up, "
-              "capture and saves included; not gated); params max|d|="
-              "{:.3e}; snapshots {}".format(
-                  CHUNK_RUN_STEPS, CHUNK_CKPT_STEPS, times["chunked"],
-                  times["per-step"], diff, snaps["chunked"]))
+        print("fit, {} steps, a checkpoint every {}, chunked against "
+              "per-step (host-fed): params max|d|={:.3e}; snapshots "
+              "{}".format(CHUNK_RUN_STEPS, CHUNK_CKPT_STEPS, diff,
+                          snaps["chunked"]))
         check(snaps["chunked"] == snaps["per-step"] == sorted(
             "smoke_barrista_iter_{}.npz".format(s_ * TB)
             for s_ in (CHUNK_CKPT_STEPS, 2 * CHUNK_CKPT_STEPS,
@@ -878,17 +685,15 @@ def check_chunked_fit(dev, seed, data):
     traced = trace_replayed_chunk(dev, seed, data)
     k = loop.TRAIN_CHUNK_STEPS
     print("one chunk of {} replayed steps under torch.profiler: {} graph "
-          "launches; kernels on the card {}; counted "
-          "by the wrappers {}; device busy {:.4f} ms a step".format(
-              k, traced["graph launches"], traced["on the card"],
-              traced["counted"], traced["busy"]))
+          "launches; kernels on the card {}; counted by the wrappers "
+          "{}".format(k, traced["graph launches"], traced["on the card"],
+                      traced["counted"]))
     for part, (_, per_step, _) in TRAIN_STEP_KERNELS.items():
         check(traced["on the card"][part] == traced["counted"][part]
               == per_step * k, "{} ran {} times a replayed step (device "
               "trace), as its wrapper's count says".format(part, per_step))
     check(traced["graph launches"] == [k] * 2, "one graph launch a "
           "replayed step")
-    return traced["busy"], traced["per kernel"]
 
 
 def check_network_families(dev, seed):
@@ -977,7 +782,6 @@ def check_network_families(dev, seed):
 # ranks sharing the one card (gloo named by the caller; NCCL at world size 1)
 SHARD_FRAME = (2160, 3840)            # the 4K frame, 1,920 columns a rank
 SHARD_CHAIN_8K = (4320, 7680)         # 1,920 columns a rank at world size 4
-SHARD_BF_HALO = 33                    # the bilateral's halo at c20 s22
 # (rtol, atol) of the JAX package's sharded gates (tests/test_parallel.py);
 # K2 and K6 are held bitwise
 SHARD_GATES = {"K4": (1e-5, 1e-3), "K5": (1e-4, 5e-3), "K9": (1e-4, 0.05)}
@@ -1062,8 +866,7 @@ def _rank_train_step(mesh, seed, n_images, hw):
 def _rank_filters(mesh, seed):
     """The width-sharded filters on a 4K photo (uint8 levels, c20 s22 for
     the bilateral, r=45 eps=3 for the guided filter, the 3x chain and the
-    box) against the single-device kernels on rank 0; then the halo
-    exchange's and this rank's kernel's times."""
+    box) against the single-device kernels on rank 0."""
     from reflectance_filtering_tpu_torch.ops.bilateral_joint_kernel import (
         bilateral_color_self_batched, bilateral_packed_joint_batched)
     from reflectance_filtering_tpu_torch.ops.bilateral_kernel import (
@@ -1125,35 +928,6 @@ def _rank_filters(mesh, seed):
                 "rel_ok": tol is None or bool(torch.allclose(g, e, *tol)),
                 "levels": float(lv.max()),
                 "levels_share": float((lv > 0).float().mean())}
-    # times: the exchange of this rank's columns (host clock around the
-    # collective and a synchronize), and K2 / K9 on its haloed block (CUDA
-    # events); both ranks share the card and run the same loop
-    ws = w // mesh.size
-    local = gray[:, mesh.rank * ws:(mesh.rank + 1) * ws][..., None]
-    localc = f[:, mesh.rank * ws:(mesh.rank + 1) * ws].contiguous()
-    times = {}
-    for name, blk, halo, kernel in (
-            ("K2 gray-self, halo 33", local, SHARD_BF_HALO,
-             lambda b: bilateral_gray_self(b[..., 0][None].contiguous(), -1,
-                                           SIGMA_C, SIGMA_S, reps=3)),
-            ("K9 3x chain, halo 270", localc, 2 * GF_R * CHAIN_ITERS,
-             lambda b: guided_filter_iterated(
-                 b.permute(2, 0, 1)[None].contiguous(),
-                 b[..., :1].permute(2, 0, 1)[None].contiguous(), GF_R,
-                 GF_EPS, CHAIN_ITERS, planar=True))):
-        border = "reflect101" if halo == SHARD_BF_HALO else "reflect"
-        ex = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            haloed = ps.exchange_halos_w(blk, halo, mesh, border)
-            torch.cuda.synchronize()
-            if i:
-                ex.append((time.perf_counter() - t0) * 1e3)
-        times[name] = {"exchange_ms": statistics.median(ex),
-                       "kernel_ms": time_ms(lambda: kernel(haloed), 5),
-                       "block": list(haloed.shape)}
-    res["times"] = times
     return res
 
 
@@ -1223,7 +997,7 @@ def _check_train_ranks(label, results):
 
 
 def check_multi_gpu(dev, seed):
-    """Phase 4p; returns world size 2's per-rank times for phase 6."""
+    """Phase 4p."""
     from reflectance_filtering_tpu_torch.parallel import dryrun
     card = "cuda:{}".format(dev.index)
     t0 = time.perf_counter()
@@ -1270,7 +1044,6 @@ def check_multi_gpu(dev, seed):
           "the NCCL group initialises and runs a sharded step and a sharded "
           "filter (K2 bitwise)")
     print("phase 4p: {:.1f} s".format(time.perf_counter() - t0))
-    return [r["times"] for r in filt2]
 
 
 # phase 5b: a synthetic IIW folder through the port's dataset builder, then
@@ -1377,12 +1150,6 @@ def check_builder(seed):
               "finite val WHDR, K7 launched")
 
 
-# the bilateral grid (an approximate CLI mode, plain torch ops): its cells
-# at the JAX bench's shapes (bench.py:488-529): (label, ss, sr)
-GRID_CELLS = [("defaults", None, None), ("quality ss=8 sr=6", 8, 6),
-              ("fast ss=16 sr=10", 16, 10)]
-
-
 def grid_quality_set(rng, h=256, w=256):
     """The JAX grid tests' 6-class quality set (tests/test_bilateral_grid.py:
     hard edge, noise, binary, low contrast, wedges, 1/f noise)."""
@@ -1474,35 +1241,6 @@ def check_grid(dev, seed):
               "against K2".format(name, dw))
 
 
-def time_grid(dev, seed, k2_ms, shard_times):
-    """Phase 6: the grid's MP/s at the JAX bench's 32 x 256x256 beside
-    K2's, and phase 4p's exchange and kernel times."""
-    from reflectance_filtering_tpu_torch.ops.bilateral_grid import (
-        bilateral_grid_gray)
-    rng = np.random.RandomState(seed + 5)
-    gj = torch.from_numpy(np.floor(rng.rand(B, H, W) * 256).astype(
-        np.float32)).to(dev)
-    gs = torch.from_numpy(np.floor(rng.rand(B, 1, H, W) * 256).astype(
-        np.float32)).to(dev)
-    mp = B * H * W / 1e6
-    print("K2 (uint8 levels) at {} x {}x{}: {:.4f} ms, {:.1f} MP/s".format(
-        B, H, W, k2_ms, mp / (k2_ms / 1e3)))
-    with torch.no_grad():
-        for label, ss, sr in GRID_CELLS:
-            ms = time_ms(lambda: bilateral_grid_gray(gj, gs, SIGMA_C / 3,
-                                                     SIGMA_S, ss, sr), 10)
-            print("bilateral grid, {}, at {} x {}x{}: {:.4f} ms, {:.1f} MP/s "
-                  "(plain torch ops; {:.2f}x K2's time)".format(
-                      label, B, H, W, ms, mp / (ms / 1e3), ms / k2_ms))
-    for rank, times in enumerate(shard_times):
-        for name, t in times.items():
-            print("sharded 4K, world size 2 (two processes sharing one "
-                  "card), rank {}, {}: halo exchange {:.3f} ms (host clock, "
-                  "gloo), kernel on the haloed block {} {:.4f} ms (CUDA "
-                  "events)".format(rank, name, t["exchange_ms"], t["block"],
-                                   t["kernel_ms"]))
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1548,24 +1286,12 @@ def main():
     from reflectance_filtering_tpu_torch.models.networks import (
         NetworkConfig, init_network)
     from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
-    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-        scatter_pairs, scatter_pairs_plain)
+    from reflectance_filtering_tpu_torch.ops.whdr_gather import scatter_pairs
     from reflectance_filtering_tpu_torch.train.checkpoint import (
         Checkpointer, load_checkpoint, save_checkpoint)
-    from reflectance_filtering_tpu_torch.train.loop import (
-        LossConfig, fit, make_optimizer, make_train_step, trainable)
+    from reflectance_filtering_tpu_torch.train.loop import LossConfig, fit
     from reflectance_filtering_tpu_torch.utils.testimages import (
         make_synthetic_comps)
-    from reflectance_filtering_tpu_torch.scripts import (
-        measure_box_guided as box_guided,
-        measure_fit_steady as fit_steady_script,
-        measure_k2_table as k2_table, measure_k6_float as k6_float,
-        measure_k8 as k8_paths,
-        measure_k6_table as k6_table,
-        measure_k9_passes as k9_passes,
-        measure_train_bwd_split as split)
-    from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-        _check_indices)
     from reflectance_filtering_tpu_torch.data import native_loader
     from reflectance_filtering_tpu_torch.models.networks import (
         apply_network, params_to_torch)
@@ -1624,31 +1350,6 @@ def main():
           and len(k6_f_ex2) == 4 and all(k6_f_ex2),
           "K6's five uint8 instantiations issue no MUFU.EX2 (no exp), its "
           "four float ones some")
-    # the float form's machine code beside its first port's (the
-    # measurement script's library): instructions and MUFU.EX2 of each
-    # (cj, cs) instantiation
-    first_sass = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
-         k6_float.library_path()], capture_output=True, text=True,
-        check=True).stdout
-    for label, code, kernel in (
-            ("float form", sass, "bilateral_joint_float_kernel"),
-            ("first port", first_sass,
-             "bilateral_joint_float_first_port_kernel")):
-        counts = {}
-        for fn in code.split("Function : ")[1:]:
-            name = fn.split("\n", 1)[0]
-            m = re.search(kernel + r"ILi(\d)ELi(\d)E", name)
-            if m:
-                lines = sass_lines(fn)
-                loop, ex2 = loop_per_ex2(fn)
-                counts["cj={} cs={}".format(*m.groups())] = (
-                    len(lines), sum("MUFU.EX2" in line for line in lines),
-                    "{}/{} = {:.2f} a pixel-tap".format(loop, ex2,
-                                                        loop / ex2))
-        print("K6 {} (instructions, MUFU.EX2, its tap loop's instructions "
-              "per MUFU.EX2) per instantiation: {}".format(
-                  label, dict(sorted(counts.items()))))
     # K1 runs its layers on the tensor cores (HMMA .TF32) and takes no
     # weight as a constant-bank operand (c[0x3], the __constant__ bank)
     k1 = [fn for fn in sass.split("Function : ")[1:]
@@ -2104,7 +1805,7 @@ def main():
                       what))
 
     phase("3t. training kernels vs plain on the card")
-    train_errs, train_in = check_training_kernels(dev, args.seed)
+    train_errs, split_launches = check_training_kernels(dev, args.seed)
     errs.update(train_errs)
 
     phase("3b. guided parity on cuda vs tests/fixtures/guided_golden.npz")
@@ -2326,7 +2027,7 @@ def main():
 
     phase("4c. the iterated chain: guided_filter_iterated(planar=True), "
           "{} iterations".format(CHAIN_ITERS))
-    chain_data, chain_launches = {}, {}
+    chain_launches = {}
     with torch.no_grad():
         for name, (fh, fw) in CHAIN_FRAMES.items():
             g_in = device_photos(cgen, 1, fh, fw)
@@ -2374,7 +2075,6 @@ def main():
                       and all("fused" in n for n in k9_names),
                       "the 4K 3x chain issues {} K9 launches, each a fused "
                       "pair".format(1 + 2 * CHAIN_ITERS))
-            chain_data[name] = (g_in, s_in)
 
     phase("4t. training: {} steps of fit at batch {} x {}x{}, K={}, {} "
           "images on the card".format(TRAIN_STEPS, TB, H, W, K, TRAIN_N))
@@ -2421,20 +2121,14 @@ def main():
         ck = Checkpointer(tmp, "smoke", interval=10 * TB)
         train_run(10, checkpointer=ck)
         p10, o10, _ = load_checkpoint(ck.path(10 * TB))
-        t0 = time.perf_counter()
         resumed, _ = train_run(TRAIN_STEPS, init_params=p10,
                                init_opt_state=o10, base_samples=10 * TB)
-        torch.cuda.synchronize()
-        fit_ms = (time.perf_counter() - t0) / (TRAIN_STEPS - 10) * 1e3
-    print("fit, resumed for 10 steps: {:.3f} ms per step on the host's clock "
-          "(the set's upload included; not gated)".format(fit_ms))
     diff = max_param_diff(resumed.params, state_k.params)
     print("resume at step 10 against 20 uninterrupted steps: params max|d|="
           "{:.3e}".format(diff))
     check(resumed.samples == state_k.samples and diff <= 1e-6,
           "10 steps + checkpoint + resume to 20 equals 20 steps (1e-6)")
-    replay_busy, replay_kernels = check_chunked_fit(dev, args.seed,
-                                                    train_data)
+    check_chunked_fit(dev, args.seed, train_data)
 
     phase("4n. the network families: compute_losses at batch {} x {}x{}, "
           "kernels on and off".format(NET_B, NET_HW, NET_HW))
@@ -2442,10 +2136,10 @@ def main():
 
     phase("4p. multi-GPU paths on the one card: spawned ranks over gloo "
           "(world sizes 2 and 4) and NCCL (world size 1)")
-    shard_times = check_multi_gpu(dev, args.seed)
+    check_multi_gpu(dev, args.seed)
 
     phase("5. the train CLI's fit stage on cuda and on the CPU")
-    ckpt_dir = tempfile.TemporaryDirectory()    # removed at the end of phase 6
+    ckpt_dir = tempfile.TemporaryDirectory()    # removed after phase 5d
     flagship_ckpt = None
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "lmdbs")
@@ -2506,7 +2200,7 @@ def main():
                 cli_out[device] = (prog, load_checkpoint(os.path.join(
                     exp, "snapshots", snaps[-1]))[0])
                 if device == "cuda" and cfg == flagship:
-                    # the checkpoint of phases 5d and 6's decompose runs
+                    # the checkpoint of phase 5d's decompose runs
                     flagship_ckpt = shutil.copy(
                         os.path.join(exp, "snapshots", snaps[-1]),
                         ckpt_dir.name)
@@ -2662,7 +2356,8 @@ def main():
     check_grid(dev, args.seed)
 
     phase("5d. the train CLI's --decompose from phase 5's flagship snapshot, "
-          "on cuda and on the CPU")
+          "on cuda and on the CPU; predict_batched and "
+          "decompose_images_batched at full size")
     check(flagship_ckpt is not None, "phase 5 kept the flagship's snapshot "
           + os.path.basename(flagship_ckpt or ""))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2728,210 +2423,8 @@ def main():
         check(size == (3 * DEC_MOVIE[2], DEC_MOVIE[1], DEC_MOVIE[0]),
               "the triptych is 3x as wide: {}x{}, {} frames".format(*size))
 
-    phase("6. times (CUDA events; inputs resident on the card)")
-    times = {}
-    with torch.no_grad():
-        times["cnn_fwd"] = (
-            time_ms(lambda: reflectance_cnn(x, weights,
-                                                   srgb_input=True), 20),
-            time_ms(lambda: reflectance_cnn_plain(
-                x, weights, srgb_input=True), 20))
-        # K2 on the bf path's uint8 levels (its row), then the float form
-        # on the same planes
-        times["bilateral_gray_self"] = (
-            time_ms(lambda: bilateral_gray_self(
-                r_levels, -1, SIGMA_C, SIGMA_S), 10),
-            time_ms(lambda: bilateral_gray_self_plain(
-                r_levels, -1, SIGMA_C, SIGMA_S), 2))
-        k2_float_times = (
-            time_ms(lambda: bilateral_gray_self(
-                r_u8, -1, SIGMA_C, SIGMA_S), 10),
-            time_ms(lambda: bilateral_gray_self_plain(
-                r_u8, -1, SIGMA_C, SIGMA_S), 1, warmup=0))
-        # the range table's three layouts in turns, on the served levels
-        # and the script's own planes
-        k2_tables = k2_table.measure(dict(
-            {"served levels": r_levels},
-            **k2_table.make_inputs(dev, args.seed)))
-        # K6's range table in three layouts, on phase 3's photos by
-        # themselves and guiding the reflectance levels
-        k6_tables = k6_table.measure({
-            "color-self": (k6_planes[(True, 3)], None),
-            "BF(reflectance, photo)": (k6_planes[(True, 3)],
-                                       k6_planes[(True, 1)])})
-        # K6's float form: the product's geometry, its first port, three
-        # other geometries and the factored weight, in turns
-        k6_floats = k6_float.measure(k6_float.make_inputs(dev, args.seed))
-        slice_ms = time_ms(
-            lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]), 10)
-        planes = box_in["32x256x256"][0]
-        times["box_filter"] = (
-            time_ms(lambda: box_filter_planar(planes, GF_R), 20),
-            time_ms(lambda: box_filter_planar_plain(planes, GF_R), 5))
-        big = box_in["1x2160x3840"][0]
-        big_times = (time_ms(lambda: box_filter_planar(big, GF_R), 20),
-                     time_ms(lambda: box_filter_planar_plain(big, GF_R), 5))
-        # gf_in's entries are (guide, src, radius); C=1 and C=3 at GF_R
-        times["guided_filter"] = (
-            time_ms(lambda: guided_filter_fused(*gf_in["C=1"], GF_EPS), 20),
-            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=1"], GF_EPS),
-                    5))
-        c3_times = (
-            time_ms(lambda: guided_filter_fused(*gf_in["C=3"], GF_EPS), 10),
-            time_ms(lambda: guided_filter_fused_plain(*gf_in["C=3"], GF_EPS),
-                    3))
-        gf_ms = time_ms(
-            lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]), 10)
-        # each loaded artifact in turns with its direct call, one batch
-        export_ms = {kind: time_turns(
-            lambda: artifacts[kind](served_by[kind][0]),
-            lambda: direct[kind](served_by[kind][0]), 10)
-            for kind in direct}
-        # every instantiation of K6 at phase 3's 8 x 256x256 planes, the
-        # kernels back to back so that no plain loop idles the card between
-        # them; then the plain versions, host-bound loops of 3,421 taps,
-        # once each without a warm-up
-        k6_ms = {instance: time_ms(lambda: k6_run(instance, k6_planes), 20)
-                 for instance in K6_INSTANCES}
-        k6_times = {}
-        for instance in K6_INSTANCES:
-            _, j, s = k6_run(instance, k6_planes)
-            k6_times[instance] = (
-                k6_ms[instance],
-                time_ms(lambda: bilateral_joint_plain(
-                    j, s, bf_radius, gcc, gsc, u8=instance[3]), 1,
-                    warmup=0))
-        for name, instance in K6_MAIN.items():
-            times[name] = k6_times[instance]
-        # the training kernels at the flagship's 20 x 256x256; the backward
-        # as the training step runs it (no input cotangent)
-        tx, tg, tflat, tshape = (train_in[key] for key in
-                                 ("x", "g", "flat", "shape"))
-        times["cnn_train_fwd"] = (
-            time_ms(lambda: k7.trunk_forward(tx, tflat, tshape), 20),
-            time_ms(lambda: k7.trunk_forward_plain(tx, tflat, tshape), 10))
-        times["cnn_train_bwd"] = (
-            time_ms(lambda: k7.trunk_backward(tx, tg, tflat, tshape, False),
-                    20),
-            time_ms(lambda: k7.trunk_backward_plain(tx, tg, tflat, tshape,
-                                                    False), 5))
-        sidx, sg1, sg2 = train_in["scatter"]
-        # K3 and K8 beside the one PyTorch call computing the same function
-        # (indices joined beforehand): advanced indexing for K3, a zeroed
-        # plane's index_put_(accumulate=True) for K8; each call is bound by
-        # the host, whose speed drifts, so kernel and library in turns
-        bi = torch.arange(B, device=dev)[:, None].expand(B, 2 * K)
-        yi, xi = (torch.cat([idx[i], idx[i + 2]], 1).long() for i in (0, 1))
-        sb = torch.arange(TB, device=dev)[:, None].expand(TB, 2 * K)
-        sy, sx = (torch.cat([sidx[i], sidx[i + 2]], 1).long() for i in (0, 1))
-        sg = torch.cat([sg1, sg2], 1)
-        library = {}
-        ms_k, library["whdr_gather"] = time_turns(
-            lambda: gather_pairs(plane, *idx), lambda: plane[bi, yi, xi], 100)
-        times["whdr_gather"] = (
-            ms_k, time_ms(lambda: gather_pairs_plain(plane, *idx), 100))
-        ms_k, library["whdr_scatter"] = time_turns(
-            lambda: scatter_pairs((TB, H, W), *sidx, sg1, sg2),
-            lambda: torch.zeros((TB, H, W), device=dev).index_put_(
-                (sb, sy, sx), sg, accumulate=True), 100)
-        times["whdr_scatter"] = (
-            ms_k, time_ms(lambda: scatter_pairs_plain((TB, H, W), *sidx, sg1,
-                                                      sg2), 100))
-        # the 3x chain on K9 and as three K5 calls, each frame; K9's two
-        # launches and their plain versions on the 4K frame
-        chain_ms, k5x3_ms = {}, {}
-        for name, (g_in, s_in) in chain_data.items():
-            iters = 10 if name == "4K" else 4
-            chain_ms[name] = time_ms(lambda: guided_filter_iterated(
-                g_in, s_in, GF_R, GF_EPS, CHAIN_ITERS, planar=True), iters)
-
-            def k5_chain():
-                q = s_in
-                for _ in range(CHAIN_ITERS):
-                    q = guided_filter_fused(g_in, q, GF_R, GF_EPS)
-                return q
-            k5x3_ms[name] = time_ms(k5_chain, iters)
-        g4, s4 = chain_data["4K"]
-        st4 = guide_stats(g4, GF_R, GF_EPS)
-        times["guide_stats"] = (
-            time_ms(lambda: guide_stats(g4, GF_R, GF_EPS), 20),
-            time_ms(lambda: guide_stats_plain(g4, GF_R, GF_EPS), 3))
-        times["guided_apply_cached"] = (
-            time_ms(lambda: guided_apply_cached(st4, g4, s4, GF_R), 20),
-            time_ms(lambda: guided_apply_cached_plain(st4, g4, s4, GF_R), 3))
-        chain_plain_ms = time_ms(lambda: guided_filter_chain_plain(
-            g4, s4, GF_R, GF_EPS, CHAIN_ITERS), 2)
-    # the training step as fit runs it, from the seeded flagship init on the
-    # resident set's first batch; kernels, then the plain versions
-    step_params = trainable(init_network(
-        flagship, torch.Generator().manual_seed(args.seed)), dev)
-    step, plain_step = (
-        make_train_step(flagship, LossConfig(), step_params,
-                        make_optimizer("ADAM", 1e-3, step_params),
-                        kernels=kernels) for kernels in (True, False))
-    step_in = tuple(torch.from_numpy(train_data[key][:TB]).to(dev)
-                    for key in ("images", "comparisons"))
-    step_ms = time_ms(lambda: step(*step_in), 20)
-    plain_step_ms = time_ms(lambda: plain_step(*step_in), 10)
-    for name, (ms, plain_ms) in times.items():
-        print("{}: kernel {:.4f} ms, plain {:.4f} ms at the main path's "
-              "shapes".format(name, ms, plain_ms))
-    print("bilateral_gray_self float32 {}x{}x{}: kernel {:.4f} ms, plain "
-          "{:.4f} ms (the row above: uint8 levels)".format(B, H, W,
-                                                          *k2_float_times))
-    k2_table.print_table(k2_tables)
-    k6_table.print_table(k6_tables)
-    k6_float.print_table(k6_floats)
-    print("box_filter 1x2160x3840 r={}: kernel {:.4f} ms, plain {:.4f} "
-          "ms".format(GF_R, *big_times))
-    print("guided_filter C=3 32x256x256 r={}: kernel {:.4f} ms, plain "
-          "{:.4f} ms".format(GF_R, *c3_times))
-    print("bf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
-          "({:.2f} MP/s)".format(slice_ms, B, B / slice_ms * 1e3,
-                                 B * H * W / slice_ms / 1e3))
-    print("gf slice + WHDR: {:.3f} ms per batch of {} = {:.1f} images/s "
-          "({:.2f} MP/s)".format(gf_ms, B, B / gf_ms * 1e3,
-                                 B * H * W / gf_ms / 1e3))
-    for kind, (art_ms, dir_ms) in export_ms.items():
-        print("{} artifact: {:.4f} ms per batch of {}, pipeline_fn('{}') "
-              "{:.4f} ms, in turns (artifact - direct {:+.4f} ms)".format(
-                  kind, art_ms, B, kind, dir_ms, art_ms - dir_ms))
-    for (cj, cs, self_guided, u8_tile), (ms, plain_ms) in k6_times.items():
-        print("K6 {} cj={} cs={}{} {}x{}x{}: kernel {:.4f} ms, plain {:.4f} "
-              "ms".format("u8" if u8_tile else "float", cj, cs,
-                          " self" if self_guided else "", BF_N, H, W, ms,
-                          plain_ms))
-    for name, what in (("bilateral_color_self", "color-self"),
-                       ("bilateral_packed_joint", "BF(reflectance, photo)")):
-        print("{} bilateral c20 s22, {} x {}x{}: {:.2f} MP/s".format(
-            what, BF_N, H, W, BF_N * H * W / times[name][0] / 1e3))
-    for name, ms in library.items():
-        print("{}: one PyTorch call {:.4f} ms".format(name, ms))
-    print("training step, batch {} x {}x{}, K={}: kernels {:.3f} ms = {:.1f} "
-          "images/s; plain {:.3f} ms = {:.1f} images/s".format(
-              TB, H, W, K, step_ms, TB / step_ms * 1e3, plain_step_ms,
-              TB / plain_step_ms * 1e3))
-    for name, (fh, fw) in CHAIN_FRAMES.items():
-        mp = fh * fw / 1e6
-        print("{}x chain r={} eps={}, {} 1x{}x{} C=1: K9 {:.4f} ms = {:.2f} "
-              "MP/s; three K5 calls {:.4f} ms = {:.2f} MP/s".format(
-                  CHAIN_ITERS, GF_R, GF_EPS, name, fh, fw, chain_ms[name],
-                  mp / chain_ms[name] * 1e3, k5x3_ms[name],
-                  mp / k5x3_ms[name] * 1e3))
-    print("4K chain on the plain versions: {:.4f} ms".format(chain_plain_ms))
-
-    phase("6. fit's steady state, the chunked trainer and the per-step one "
-          "in turns (measure_fit_steady.py)")
-    fit_steady = fit_steady_script.measure(dev, args.seed)
-    fit_steady_script.print_table(fit_steady)
-
-    phase("6. K8's sort path and quadratic search, in turns, on the training "
-          "step's points and beside them")
-    k8_paths.print_table(k8_paths.measure(k8_paths.make_inputs(dev,
-                                                               args.seed)))
-
-    phase("6. the decompose path at full size, from phase 5's flagship "
-          "snapshot")
+    # predict_batched and decompose_images_batched at full size, from the
+    # same snapshot
     dec_params = params_to_torch(load_checkpoint(flagship_ckpt)[0], dev)
     predict = make_predict_fn(flagship)
     fgen = torch.Generator(device=dev).manual_seed(args.seed + 12)
@@ -2939,15 +2432,10 @@ def main():
     with torch.no_grad():
         frames = srgb_to_rgb_t(device_photos(fgen, FRAMES, fh, fw) / 255.0)
         frames = frames.permute(0, 2, 3, 1).contiguous().cpu().numpy()
-    predict_batched(predict, dec_params, frames[:FRAME_BATCH], FRAME_BATCH,
-                    dev)                                    # warm-up
-    torch.cuda.synchronize()
     before = k7.trunk_forward.launches
-    t0 = time.perf_counter()
-    frame_out = predict_batched(predict, dec_params, frames, FRAME_BATCH, dev)
-    frame_s = time.perf_counter() - t0
+    refl = predict_batched(predict, dec_params, frames, FRAME_BATCH,
+                           dev)["reflectance"]
     frame_launches = k7.trunk_forward.launches - before
-    refl = frame_out["reflectance"]
     with torch.no_grad():
         first = torch.from_numpy(frames[:1]).to(dev)
         plain = torch.relu(apply_network(dec_params, first, flagship,
@@ -2959,22 +2447,7 @@ def main():
           "forward once a batch, frame 0 within 1e-4 of the plain per-layer "
           "path on the card (max {:.2e})".format(FRAMES, fh, fw, FRAME_BATCH,
                                                 frame_err))
-    fpx = FRAME_BATCH * fh * fw
-    fx = torch.from_numpy(frames[:FRAME_BATCH]).to(dev).reshape(fpx, 3)
-    fflat = k7.pack(*k7._matrices(dec_params, tshape[0], ""))
-    frame_k7_ms = time_ms(lambda: k7.trunk_forward(fx, fflat, tshape), 10)
-    fmacs, ffuse = trunk_fmas(tshape)
-    frame_k7_bound = bound(tf32_macs=fmacs * fpx, flops=2 * ffuse * fpx,
-                           nbytes=16 * fpx + 4 * k7.num_params(tshape))
-    print("predict_batched, {} frames of {}x{} in batches of {}: {:.3f} s = "
-          "{:.2f} frames/s (host clock; the copies to and from the card "
-          "included)".format(FRAMES, fh, fw, FRAME_BATCH, frame_s,
-                             FRAMES / frame_s))
-    print("K7 forward at {} pixels ({} frames): {:.4f} ms, bound {:.4f} ms "
-          "({}, 3xTF32; {:.1%} of its rate)".format(
-              fpx, FRAME_BATCH, frame_k7_ms, frame_k7_bound[0],
-              frame_k7_bound[1], frame_k7_bound[0] / frame_k7_ms))
-    del fx, frames, frame_out
+    del frames, refl
     ph, pw = PNG_HW
     png_dir = os.path.join(ckpt_dir.name, "pngs")
     os.makedirs(png_dir)
@@ -2985,212 +2458,12 @@ def main():
     for i, img in enumerate(pngs):
         png_paths.append(os.path.join(png_dir, "photo{:02d}.png".format(i)))
         cv2.imwrite(png_paths[-1], img)
-    t0 = time.perf_counter()
     done = decompose_images_batched(png_paths, dec_params, flagship,
                                     os.path.join(ckpt_dir.name, "png_out"),
                                     batch_size=16, device=dev)
-    png_s = time.perf_counter() - t0
-    png_split = decompose_images_batched.last_seconds
     check(sorted(done) == png_paths, "decompose_images_batched wrote all {} "
           "PNGs of {}x{}".format(PNG_N, ph, pw))
-    print("decompose_images_batched, {} PNGs of {}x{} in batches of 16: "
-          "{:.3f} s wall = {:.2f} images/s; decode {:.3f} s, device {:.3f} "
-          "s, write {:.3f} s (host clock); decoders {}".format(
-              PNG_N, ph, pw, png_s, PNG_N / png_s, png_split["decode"],
-              png_split["device"], png_split["write"],
-              native_loader.read_images_rgb.last_decoders))
     ckpt_dir.cleanup()
-
-    phase("6. K5's two paths and K4's two forms, in turns, bands and widths")
-    box_guided.print_tables(box_guided.measure(dev, args.seed))
-
-    phase("6. K9's passes apart, the column passes at each segment length")
-    k9_passes.print_table(k9_passes.measure(dev, args.seed))
-
-    phase("6. K7's backward split by phase (TPU kernel 19), inputs made "
-          "with numpy from --seed")
-    sx, sg, sflat = split.make_inputs(dev, args.seed)
-    reset_launches()
-    split_run = split.measure(sx, sg, sflat)
-    split_launches = read_launches("K7 backward split", (
-        "cnn_train_bwd_split",))
-    split.print_table(split_run, registers=split.register_report())
-    times["cnn_train_bwd_split"] = (
-        split_run["ms"]["full"],
-        time_ms(lambda: k7.trunk_backward_variant_plain(
-            sx, sg, sflat, split.SHAPE, 0), 5))
-    print("K7 backward in the times above: {:.4f} ms; in the split's turns: "
-          "{:.4f} ms".format(times["cnn_train_bwd"][0],
-                             split_run["product_ms"]))
-
-    phase("6. the bilateral grid's MP/s beside K2's; the sharded 4K "
-          "filters' exchange and kernel times")
-    time_grid(dev, args.seed, times["bilateral_gray_self"][0], shard_times)
-
-    phase("7. profile: device time per batch (torch.profiler, {} "
-          "batches each)".format(PROFILE_BATCHES))
-    slices = {
-        "bf": (lambda: whdr_batch(bf(requests[0]) / 255.0, comps[0]),
-               slice_ms),
-        "gf": (lambda: whdr_batch(gf(gf_requests[0]) / 255.0, comps[0]),
-               gf_ms),
-        "4K 3x chain": (lambda: guided_filter_iterated(
-            g4, s4, GF_R, GF_EPS, CHAIN_ITERS, planar=True), chain_ms["4K"])}
-    with torch.no_grad():
-        # why profile_calls traces warm-up calls first: the bf slice's
-        # batches in a session that does not (not gated)
-        from torch.profiler import ProfilerActivity, profile
-        slices["bf"][0]()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_BATCHES):
-                slices["bf"][0]()
-            torch.cuda.synchronize()
-        counts = device_spans([
-            (e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)])[2]
-        print("bf slice, a session with no warm-up calls (not gated): {} "
-              "device records; names seen a number of times not a multiple "
-              "of {} batches: {}".format(
-                  sum(counts.values()), PROFILE_BATCHES, {
-                      name[:60]: c for name, c in counts.items()
-                      if c % PROFILE_BATCHES} or "none"))
-        for name, (run, wall_ms) in slices.items():
-            busy, per_kernel = device_profile(run, PROFILE_BATCHES)
-            print("{} slice: device busy {:.4f} ms of {:.4f} ms per "
-                  "batch (phase 6's CUDA events): idle share {:.2%}"
-                  .format(name, busy, wall_ms, 1 - busy / wall_ms))
-            check(busy <= wall_ms * 1.03, "{} slice: the device is busy no "
-                  "longer than the batch's wall time (3% for the two "
-                  "runs' spread)".format(name))
-            for kernel, ms in sorted(per_kernel.items(),
-                                     key=lambda kv: -kv[1])[:12]:
-                print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
-            if name == "bf":
-                # K2 bounds the bf batch on the card: its trace time is its
-                # CUDA-event time alone (phase 6)
-                k2_trace = sum(ms for kernel, ms in per_kernel.items()
-                               if "bilateral_gray_self_kernel" in kernel)
-                k2_event = times["bilateral_gray_self"][0]
-                check(abs(k2_trace - k2_event) <= 0.05 * k2_event,
-                      "K2 in the bf slice's trace {:.4f} ms within 5% of its "
-                      "CUDA-event time {:.4f} ms".format(k2_trace, k2_event))
-    # K4 and K5 split into their kernels, each path and form
-    box_guided.print_split(box_guided.profile(dev, args.seed))
-    k7_before = (k7.trunk_forward.launches, k7.trunk_backward.launches)
-    busy, per_kernel = device_profile(lambda: step(*step_in),
-                                      PROFILE_BATCHES)
-    print("training step: K7 launches per step in the profile: forward "
-          "{:.2f}, backward {:.2f}".format(*(
-              (now - was) / (PROFILE_BATCHES + 1) for now, was in zip(
-                  (k7.trunk_forward.launches, k7.trunk_backward.launches),
-                  k7_before))))
-    parts = {"K7 forward": ("trunk_fwd",),
-             "K7 backward + block sum": ("trunk_bwd", "sum_partials"),
-             "K3 gather": ("whdr_gather_kernel",),
-             "K8 scatter": ("whdr_scatter",),
-             "memsets (K8's plane among them)": ("Memset",),
-             "Adam": ("multi_tensor_apply", "adam", "Adam")}
-
-    def step_split(kernels):
-        part_ms = {part: 0.0 for part in parts}
-        part_ms["loss glue (everything else)"] = 0.0
-        for kernel, ms in kernels.items():
-            part = next((p_ for p_, keys in parts.items()
-                         if any(key in kernel for key in keys)),
-                        "loss glue (everything else)")
-            part_ms[part] += ms
-        return part_ms
-
-    print("training step: device busy {:.4f} ms of {:.4f} ms per step "
-          "(phase 6's CUDA events): idle share {:.2%}; a replayed step "
-          "of fit's chunk busy {:.4f} ms (phase 4t's trace); each "
-          "part's ms eager, then replayed:".format(
-              busy, step_ms, 1 - busy / step_ms, replay_busy))
-    check(busy <= step_ms * 1.03, "training step: the device is busy no "
-          "longer than the step's wall time (3% for the two runs' spread)")
-    replay_ms = step_split(replay_kernels)
-    for part, ms in step_split(per_kernel).items():
-        print("  {:9.4f} ms  {:5.1%}  {:9.4f} ms  {}".format(
-            ms, ms / busy, replay_ms[part], part))
-    for name, ms in fit_steady["fit"].items():
-        # the resident set trains by replays, the host-fed one eagerly
-        step_busy = replay_busy if name == "resident" else busy
-        print("fit, {} set: {:.4f} ms per step (phase 6) beside the {} "
-              "step's busy {:.4f} ms: idle share {:.2%}".format(
-                  name, ms, "replayed" if name == "resident" else "eager",
-                  step_busy, 1 - step_busy / ms))
-        check(step_busy <= ms * 1.03, "fit, {} set: the device is busy no "
-              "longer than a step (3% for the two runs' spread)".format(name))
-    print("host ms to issue one step (phase 6): eager {:.4f}, replayed "
-          "{:.4f}".format(fit_steady["issue"]["eager step"],
-                          fit_steady["issue"]["replayed step"]))
-    for kernel, ms in sorted(per_kernel.items(),
-                             key=lambda kv: -kv[1])[:12]:
-        print("  {:9.4f} ms  {}".format(ms, kernel[:90]))
-
-    # K3 at the serving shape: its device time, and the host's time per
-    # wrapper call split into checks, allocation and launch, beside the
-    # one indexing call (host clock around 1,000 calls and one synchronize)
-    with torch.no_grad():
-        # one profile of both, a call each per round
-        _, per_kernel = device_profile(
-            lambda: (gather_pairs(plane, *idx), plane[bi, yi, xi]), 50)
-        print("K3 gather_pairs and indexing {}x{}: device ms per call: "
-              "{}".format(B, K, "; ".join(
-                  "{:.5f} {}".format(ms, kernel[:60])
-                  for kernel, ms in per_kernel.items()) or "not seen"))
-        g_out = torch.empty((2, B, K), dtype=torch.float32, device=dev)
-        g_ptrs = [t.data_ptr() for t in idx]
-        host = {
-            "checks": lambda: (_build.check_tensor(plane, "plane",
-                                                   torch.float32, 3),
-                               _check_indices(plane.shape, plane.device,
-                                              idx)),
-            "allocation": lambda: plane.new_empty((2, B, K)).unbind(0),
-            "launch": lambda: _build.launch(
-                "rf_whdr_gather", plane.device, plane.data_ptr(), *g_ptrs,
-                g_out.data_ptr(), g_out.data_ptr() + 4 * B * K, B, H, W, K),
-            # the launch as every wrapper made it before: a device context,
-            # a Stream object and the entry point looked up by name
-            "launch, previous path": lambda: launch_before(
-                "rf_whdr_gather", plane.device, plane.data_ptr(), *g_ptrs,
-                g_out.data_ptr(), g_out.data_ptr() + 4 * B * K, B, H, W, K),
-            "whole gather_pairs": lambda: gather_pairs(plane, *idx),
-            "indexing (library)": lambda: plane[bi, yi, xi]}
-        for part, run in host.items():
-            print("K3 host {}: {:.2f} us per call".format(part,
-                                                          host_us(run)))
-        # what the rf:: operator layer costs the host: K1 on one 256-pixel
-        # row (device time ~nil) by its wrapper, the operator called
-        # directly, and the bare launch into a buffer made once
-        xs = x[:1, :, :256].contiguous()
-        k1_out = torch.empty((1, 256), dtype=torch.float32, device=dev)
-        host = {
-            "wrapper (checks + rf::cnn_fwd)": lambda: reflectance_cnn(
-                xs, weights, srgb_input=True),
-            "rf::cnn_fwd alone": lambda: torch.ops.rf.cnn_fwd(
-                xs, weights, True),
-            "bare launch": lambda: _build.launch(
-                "rf_cnn_fwd", xs.device, xs.data_ptr(), weights.data_ptr(),
-                k1_out.data_ptr(), 1, 256, 1)}
-        for part, run in host.items():
-            print("K1 host {}: {:.2f} us per call".format(part,
-                                                          host_us(run)))
-        # what a loaded artifact's graph module adds to a call (its input
-        # checks and graph nodes): the symbolic cnn artifact on one 16x16
-        # photo (device time ~nil) beside the direct call
-        tiny = torch.from_numpy(photos(np.random.RandomState(args.seed), 1,
-                                       16, 16)).to(dev)
-        for part, run in (
-                ("symbolic artifact", lambda: artifacts["symbolic"](tiny)),
-                ("decompose_planar", lambda: dec_cli.decompose_planar(
-                    weights, tiny))):
-            print("cnn host {}: {:.2f} us per call".format(part,
-                                                           host_us(run)))
 
     sources = {
         "cnn_fwd": ("reflectance_filtering_tpu_torch/csrc/cnn_fwd.cu",
@@ -3239,89 +2512,11 @@ def main():
         launches[name] = train_launches[name]
     for name in ("guide_stats", "guided_apply_cached"):
         launches[name] = chain_launches["4K"][name]
-    launches["cnn_train_bwd_split"] = split_launches["cnn_train_bwd_split"]
-    # each kernel's bound at the shapes timed in phase 6; float32 FMAs count
-    # 2 operations.  A bilateral tap on uint8 levels needs no expf: as in
-    # cv2.bilateralFilter its weight is a range table entry (indexed by the
-    # integer |d|, or by the sum of |d| over the joint planes) times the
-    # tap's spatial weight, so one table load, 1 multiply, an FMA per src
-    # plane and 1 add.  The float joint filter pays an expf per tap and 2 per
-    # joint plane + 2 + 2 per (src plane + 1) float32 operations.
-    taps = sum(1 for dy in range(-bf_radius, bf_radius + 1)
-               for dx in range(-bf_radius, bf_radius + 1)
-               if dy * dy + dx * dx <= bf_radius * bf_radius)
-    print("bilateral disk at r={}: {} taps".format(bf_radius, taps))
-    px, bf_px, t_px = B * H * W, BF_N * H * W, TB * H * W
-    check(tshape == split.SHAPE == (5, 3, 32, 1) and t_px == split.PIXELS,
-          "the training kernels were timed at the split's shapes, K1's "
-          "network")
-    c4_px = CHAIN_FRAMES["4K"][0] * CHAIN_FRAMES["4K"][1]
-    nparams = k7.num_params(tshape)
-    # K1 and K7: the matrix products' MACs as 3xTF32, the fuse on the FP32
-    # pipe (split.matmul_ms); the FP32 pipe alone is printed beside
-    macs, fuse = trunk_fmas(split.SHAPE)
-    bwd_fuse = sum(split.phase_fuse_fmas().values())
-    bwd_macs = sum(split.phase_fmas().values()) - bwd_fuse
-    # box sums: 2 float64 adds per output and plane pass (a sliding window)
-    bounds = {
-        "cnn_fwd": bound(tf32_macs=macs * px, flops=2 * fuse * px,
-                         nbytes=16 * px),
-        # uint8 levels in (1 B), float32 out (4 B)
-        "bilateral_gray_self": bound(flops=4 * taps * px, loads=taps * px,
-                                     nbytes=5 * px),
-        "whdr_gather": bound(nbytes=32 * B * K),
-        "box_filter": bound(nbytes=8 * px, f64_adds=2 * 2 * px),
-        # K5 at C = 1: 13 moment planes and 4 of (a, b), each a column and
-        # a row pass
-        "guided_filter": bound(nbytes=20 * px, f64_adds=2 * 34 * px),
-        "bilateral_joint": bound(flops=12 * taps * bf_px, sfu=taps * bf_px,
-                                 nbytes=20 * bf_px),
-        "bilateral_color_self": bound(flops=8 * taps * bf_px,
-                                      loads=taps * bf_px, nbytes=24 * bf_px),
-        "bilateral_packed_joint": bound(flops=4 * taps * bf_px,
-                                        loads=taps * bf_px, nbytes=20 * bf_px),
-        "cnn_train_fwd": bound(tf32_macs=macs * t_px, flops=2 * fuse * t_px,
-                               nbytes=16 * t_px + 4 * nparams),
-        # the backward's FMAs per pixel: the split's phases summed
-        "cnn_train_bwd": bound(tf32_macs=bwd_macs * t_px,
-                               flops=2 * bwd_fuse * t_px,
-                               nbytes=16 * t_px + 8 * nparams),
-        "whdr_scatter": bound(nbytes=4 * t_px + 24 * TB * K),
-        # K9 on the 4K frame: the guide in (12 B/px) and 9 stat planes
-        # out, 2 x 9 plane passes; an application reads the stats, the
-        # guide and one src plane and writes one plane, 2 x 4 + 2 x 4
-        # plane passes (66 in a 3x chain)
-        "guide_stats": bound(nbytes=(12 + 36) * c4_px,
-                             f64_adds=2 * 18 * c4_px),
-        "guided_apply_cached": bound(nbytes=(36 + 12 + 4 + 4) * c4_px,
-                                     f64_adds=2 * 16 * c4_px),
-    }
-    f32_bounds = {
-        "cnn_fwd": split.matmul_ms(macs, fuse, px, tensor_cores=False),
-        "cnn_train_fwd": split.matmul_ms(macs, fuse, t_px,
-                                         tensor_cores=False),
-        "cnn_train_bwd": split.matmul_ms(bwd_macs, bwd_fuse, t_px,
-                                         tensor_cores=False)}
-    f32_bounds["cnn_train_bwd_split"] = f32_bounds["cnn_train_bwd"]
-    # the split's full variant is the product backward: row 18's bound
-    bounds["cnn_train_bwd_split"] = bounds["cnn_train_bwd"]
-    for name, ms in f32_bounds.items():
-        print("{}: bound {:.4f} ms with 3xTF32 tensor cores ({:.1%} of its "
-              "rate), {:.4f} ms on the FP32 pipe alone ({:.1%})".format(
-                  name, bounds[name][0], bounds[name][0] / times[name][0],
-                  ms, ms / times[name][0]))
-    chain_bound = bound(nbytes=(12 + 4 + 4) * c4_px)
-    print("{}x chain 4K bound {:.4f} ms ({}: guide and src in, q out; K9 "
-          "{:.1%} of its rate)".format(CHAIN_ITERS, chain_bound[0],
-                                       chain_bound[1],
-                                       chain_bound[0] / chain_ms["4K"]))
+    launches["cnn_train_bwd_split"] = split_launches
     print("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library.get(name)}
+         "launches": launches[name], "max_abs_err": errs[name]}
         for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -163,26 +163,6 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, _digest(_sources()))
 
 
-def script_library(source: str, headers, stem: str) -> ctypes.CDLL:
-    """A measurement script's own library: ``source`` (a .cu beside the
-    script, including ``headers`` of csrc/) built with the product's flags
-    into ``BUILD_ROOT/<stem>_<hash>/lib<stem>.so`` at first use, its
-    compiler output in build.log there."""
-    deps = [source] + [os.path.join(CSRC_DIR, name) for name in headers]
-    out_dir = os.path.join(BUILD_ROOT, "{}_{}".format(stem, _digest(deps)))
-    so_path = os.path.join(out_dir, "lib{}.so".format(stem))
-    if not os.path.isfile(so_path):
-        os.makedirs(out_dir, exist_ok=True)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so_path,
-                               source], capture_output=True, text=True)
-        with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on {}:\n{}".format(
-                source, (proc.stdout + proc.stderr)[-4000:]))
-    return ctypes.CDLL(so_path)
-
-
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use; argtypes set for every
     entry point, each resolved once into the table ``launch`` reads."""

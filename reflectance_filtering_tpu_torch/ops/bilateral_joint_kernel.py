@@ -188,15 +188,11 @@ def space_log2_weights(radius: int, gauss_space_coeff: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _space_table(device: torch.device, radius: int, gsc: float,
-                 log2: bool = True) -> torch.Tensor:
-    """The float form's spatial table (radius^2 + 1) float32 on ``device``:
-    :func:`space_log2_weights` (the product's), or the weights
-    themselves (:func:`~.bilateral.space_weights`, the factored form that
-    scripts/measure_k6_float.py times), uploaded once per parameter
-    set."""
-    table = (space_log2_weights if log2 else space_weights)(radius, gsc)
-    return torch.from_numpy(table).to(device)
+def _space_table(device: torch.device, radius: int,
+                 gsc: float) -> torch.Tensor:
+    """The float form's spatial table (radius^2 + 1) float32 on ``device``,
+    :func:`space_log2_weights`, uploaded once per parameter set."""
+    return torch.from_numpy(space_log2_weights(radius, gsc)).to(device)
 
 
 def check_channels(cj: int, cs: int) -> None:

@@ -12,7 +12,8 @@ At the serving shape (32 x 1,181) K3 runs ~2 us on the card, so a call
 costs its host path: the checks in one pass, one [2, B, K] allocation whose
 rows are l1 and l2, and one ctypes launch (``_build.launch``); the wrapper
 keeps each short, so that the call costs less host time than one indexing
-call (chip_smoke.py phase 7 splits it).  K8's wrapper takes the same path:
+call (the benchmark's ``whdr_issue_ms`` reads the host time of a served
+batch's WHDR, K3 and its glue).  K8's wrapper takes the same path:
 its six tensors checked in one pass, one allocation, one launch.
 
 K8 runs one of two kernels, chosen by shape (:func:`sort_path`): up to

@@ -5,7 +5,7 @@ turns, on the host this runs on.
         [--count 32] [--height 768] [--width 1024] [--seed N]
 
 Writes ``--count`` seeded PNGs of ``--height`` x ``--width`` (smooth color
-fields with noise, as phase 6 of chip_smoke.py writes) into a temporary
+fields with noise, as phase 5d of chip_smoke.py writes) into a temporary
 directory, holds the two decoders bitwise equal on them, then times each
 over the whole set ROUNDS times in turns (native, cv2, cv2, native, ...):
 ``data/native_loader.load_batch_rgb`` (the C++ thread pool, one call), and

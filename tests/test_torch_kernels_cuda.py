@@ -421,6 +421,56 @@ def test_guided_kernel_paths_match_plain(dev, n, c, h, w, radius, path):
     assert (got - exp).abs().max().item() <= 0.05
 
 
+# The fused blocks' heights that the band rules choose among, on the
+# served gf batch (scripts/measure_box_guided.py times each)
+FUSED_BANDS = [8, 16, 32, 64]
+
+
+@pytest.mark.parametrize("band", FUSED_BANDS)
+@pytest.mark.parametrize("c", [1, 3])
+def test_guided_kernel_fused_bands_match_plain(dev, c, band):
+    """K5's fused pair at each band height, forced, on the served gf batch
+    (32 x 256x256, r = 45) at C = 1 and 3, against the plain version:
+    within 1 uint8 level, equal on >= 99.9%, 0.05 in float."""
+    rng = np.random.RandomState(16)
+    g = torch.from_numpy(np.floor(rng.rand(32, 3, 256, 256) * 256).astype(
+        np.float32)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(32, c, 256, 256) * 256).astype(
+        np.float32)).to(dev)
+    before = guided_filter_fused.fused_launches
+    got = guided_filter_fused(g, s, 45, 3.0, path="fused", band=band)
+    assert guided_filter_fused.fused_launches == before + 1
+    exp = guided_filter_fused_plain(g, s, 45, 3.0)
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 0.05
+
+
+# (n, h, w) frames on each side of the width rule at r = 45, C = 1: wider
+# frames at the served batch's pixel count, single frames (the guided CLI,
+# the chain check), a frame taller than it is wide
+K5_FRAMES = [(16, 256, 384), (16, 256, 512), (8, 512, 512), (1, 256, 256),
+             (1, 341, 512), (1, 480, 512), (1, 1024, 512)]
+
+
+@pytest.mark.parametrize("path", ["fused", "four-pass"])
+@pytest.mark.parametrize("n,h,w", K5_FRAMES)
+def test_guided_kernel_paths_on_frames_match_plain(dev, n, h, w, path):
+    """K5's two paths, each forced, on frames up to the fused pair's widest
+    (512 columns), against the plain version in float64: within 1 uint8
+    level, equal on >= 99.9%, 0.05 in float."""
+    from reflectance_filtering_tpu_torch.ops.guided_kernel import fused_fits
+    assert fused_fits(1, w)
+    rng = np.random.RandomState(17)
+    g = torch.from_numpy(np.floor(rng.rand(n, 3, h, w) * 256)).to(dev)
+    s = torch.from_numpy(np.floor(rng.rand(n, 1, h, w) * 256)).to(dev)
+    got = guided_filter_fused(g.float(), s.float(), 45, 3.0, path=path)
+    exp = guided_filter_fused_plain(g, s, 45, 3.0).float()
+    d = (torch.round(got).clamp(0, 255) - torch.round(exp).clamp(0, 255)).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    assert (got - exp).abs().max().item() <= 0.05
+
+
 @pytest.mark.parametrize("path", ["fused", "four-pass"])
 def test_guided_golden_fixtures_by_path(dev, path):
     """Each path on the 12 color-guide golden fixtures
@@ -480,6 +530,23 @@ def test_box_kernel_forms_match_plain(dev, shape, radius, path, border):
     w = 2 * radius + 1
     partial = min(max(shape[1:]) + 2 * radius, 512) * w * 255.0
     assert (got - exp).abs().max().item() <= 8 * 2.0 ** -24 * partial / (w * w)
+
+
+@pytest.mark.parametrize("band", FUSED_BANDS)
+def test_box_kernel_fused_bands_match_plain(dev, band):
+    """K4's fused form at each band height, forced, on its timed stack
+    ([32, 256, 256], r = 45), against the block-local float32 sliding sum:
+    within 8 float32 ulps of its largest partial, scaled like the
+    output."""
+    rng = np.random.RandomState(18)
+    x = torch.from_numpy((rng.rand(32, 256, 256) * 255).astype(
+        np.float32)).to(dev)
+    before = box_filter_planar.fused_launches
+    got = box_filter_planar(x, 45, path="fused", band=band)
+    assert box_filter_planar.fused_launches == before + 1
+    exp = box_filter_planar_plain(x, 45)
+    partial = (256 + 90) * 91 * 255.0
+    assert (got - exp).abs().max().item() <= 8 * 2.0 ** -24 * partial / 91**2
 
 
 def _within_gate(got, exp):
@@ -684,14 +751,16 @@ def test_scatter_kernel_matches_index_put(dev, b, h, w, k):
 
 @pytest.mark.parametrize("b,h,w,k", [(20, 256, 256, 1181), (2, 3, 3, 1500),
                                      (3, 17, 9, 1), (1, 2048, 2048, 600),
+                                     (4, 2048, 2048, 1181),
                                      (1, 1024, 1024, 2048),
+                                     (2, 256, 256, 8000),
                                      (2, 64, 64, 8192)])
 def test_scatter_sort_path_equals_quadratic(dev, b, h, w, k):
     """K8's sort path bitwise equal to its quadratic search: the same
-    cotangents summed in the same order.  2048 x 2048 at K = 600 needs the
-    64-bit key; 1024 x 1024 at K = 2048 too, at 4,096 keys a block, whose
-    shared memory is just above 48 KB; K = 8192 is the largest K the sort
-    path takes."""
+    cotangents summed in the same order.  2048 x 2048 at K = 600 and 1181
+    needs the 64-bit key; 1024 x 1024 at K = 2048 too, at 4,096 keys a
+    block, whose shared memory is just above 48 KB; K = 8000 at 256 x 256
+    (16 keys a thread) and K = 8192, the largest K the sort path takes."""
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
         _scatter_quadratic, sort_path)
     assert sort_path(k)
@@ -928,12 +997,13 @@ def test_chain_passes_alone_are_the_entry_points(dev):
 # (n, c, h, w, radius) for K9's fused pairs: widths that are a multiple of
 # neither a block's columns nor a cluster's tile (several tiles and
 # clusters, their edges), frames narrower than the window and radii wider
-# than the frame, n > 1, r = 0 and 1, C = 1, 2, 3, and the 4K frame at
-# C = 1 and 3
+# than the frame, n > 1, r = 0 and 1, C = 1, 2, 3, the 4K frame at
+# C = 1 and 3, and the 8K frame, whose plan cuts other segments
 FUSED_CASES = [(1, 1, 70, 1001, 45), (2, 2, 50, 96, 45),
                (1, 3, 41, 2050, 20), (1, 1, 12, 40, 45), (1, 2, 37, 45, 60),
                (1, 1, 130, 700, 1), (1, 3, 33, 64, 0), (3, 1, 64, 300, 8),
-               (1, 1, 2160, 3840, 45), (1, 3, 2160, 3840, 45)]
+               (1, 1, 2160, 3840, 45), (1, 3, 2160, 3840, 45),
+               (1, 1, 4320, 7680, 45)]
 
 
 @pytest.mark.parametrize("n,c,h,w,radius", FUSED_CASES)
