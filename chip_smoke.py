@@ -39,7 +39,9 @@ Phases (any failure exits nonzero before the result line):
               its plain version in float64); the iterated guided chain K9
               (3 iterations, r=45, eps=3) on a 2160x3840 frame, C=1, with its guide statistics
               and one application held alone, on 2 x 480x512 with C=3, and
-              on a 12x40 frame narrower than the window;
+              on a 12x40 frame narrower than the window; WHDR's scores in
+              one launch (whdr_scores) against the composition around K3
+              (kernels=False) within 1e-6;
   3t. train   the training kernels against their plain versions on the
               card: the fused skip-layer trunk K7 (forward against the plain
               trunk, backward against plain autograd) at the flagship's
@@ -73,8 +75,9 @@ Phases (any failure exits nonzero before the result line):
   4. serving  3 requests of 32 uint8 BGR 256x256 photos through
               utils.serving.pipeline_fn("bf") and whdr_batch, then 3 through
               pipeline_fn("gf") and whdr_batch; every launch counter is reset
-              before each path and checked after it, and each result is held
-              against the same pipeline through the plain versions;
+              before each path and checked after it (WHDR scored by
+              whdr_scores once a batch, K3 not launched), and each result is
+              held against the same pipeline through the plain versions;
   4e. export  utils.serving.export_flagship on the card: cnn, bf and gf
               artifacts of 32 x 256x256 and one symbolic cnn, saved
               (torch.export), loaded (load_flagship) and run on phase 4's
@@ -93,7 +96,8 @@ Phases (any failure exits nonzero before the result line):
               on a seeded synthetic set of 40 images resident on the card
               (fit's chunked trainer: an eager warm-up step, one capture of
               the step as a CUDA graph, then replays), once through the
-              kernels (K7 forward and backward, K3 twice, K8: each counted
+              kernels (K7 forward and backward, K3 and K8 for the hinge,
+              whdr_scores for the whdr_original metric: each counted
               by its wrapper in the warm-up step and, recorded in the
               capture, in every replay: exactly its count a step times 20)
               and once through the plain versions on the card, also
@@ -105,8 +109,8 @@ Phases (any failure exits nonzero before the result line):
               (DEVICE_FEED_BUDGET_BYTES = 0): the same snapshots, params
               within 1e-6; the resume from step 33 against the 70
               uninterrupted steps (1e-6); one chunk of 32 replays under
-              torch.profiler: K7's forward, backward and block sum, K3
-              (twice) and K8 each ran in every replayed step on the card,
+              torch.profiler: K7's forward, backward and block sum, K3,
+              K8 and whdr_scores each ran in every replayed step on the card,
               as many times as the wrappers' counters say, one graph
               launch a step;
   4n. nets    the seven networkTypes (batch norm on and off for the
@@ -251,13 +255,16 @@ TRAIN_FLAGS = ["--networkType=convStaticSkipLayers", "--numLayers=5",
 # chunk boundary, a remainder)
 CHUNK_RUN_STEPS, CHUNK_CKPT_STEPS = 70, 33
 # the training kernels' device names (substrings), launches a step (the
-# hinge's and the metric's gathers, the hinge's scatter) and the counter of
-# the wrapper that launches each (K7's backward launches its block sum)
+# hinge's gather and scatter, the whdr_original metric's scores) and the
+# counter of the wrapper that launches each (K7's backward launches its
+# block sum)
 TRAIN_STEP_KERNELS = {"K7 forward": ("trunk_fwd", 1, "cnn_train_fwd"),
                       "K7 backward": ("trunk_bwd_kernel", 1, "cnn_train_bwd"),
                       "K7 block sum": ("sum_partials", 1, "cnn_train_bwd"),
-                      "K3 gather": ("whdr_gather_kernel", 2, "whdr_gather"),
-                      "K8 scatter": ("whdr_scatter", 1, "whdr_scatter")}
+                      "K3 gather": ("whdr_gather_kernel", 1, "whdr_gather"),
+                      "K8 scatter": ("whdr_scatter", 1, "whdr_scatter"),
+                      "WHDR scores": ("whdr_scores_kernel", 1,
+                                      "whdr_scores")}
 # K7 off the flagship: (n, ci, f, cout) on a 37x53 frame
 K7_OTHER = [(2, 3, 16, 1), (1, 3, 32, 1), (2, 3, 128, 1), (3, 3, 16, 6)]
 # phase 4n: (networkType, batch norm) at batch NET_B of NET_HW x NET_HW
@@ -586,7 +593,7 @@ def trace_replayed_chunk(dev, seed, data):
         NetworkConfig, init_network)
     from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-        gather_pairs, scatter_pairs)
+        gather_pairs, scatter_pairs, whdr_scores)
     from reflectance_filtering_tpu_torch.train import loop
     from reflectance_filtering_tpu_torch.utils.profiling import (
         profile_calls)
@@ -604,7 +611,8 @@ def trace_replayed_chunk(dev, seed, data):
     torch.cuda.synchronize()
     wrappers = {"cnn_train_fwd": k7.trunk_forward,
                 "cnn_train_bwd": k7.trunk_backward,
-                "whdr_gather": gather_pairs, "whdr_scatter": scatter_pairs}
+                "whdr_gather": gather_pairs, "whdr_scatter": scatter_pairs,
+                "whdr_scores": whdr_scores}
     before = {name: fn.launches for name, fn in wrappers.items()}
     chunk(k, 0, k)
     counted = {part: wrappers[counter].launches - before[counter]
@@ -1252,7 +1260,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from reflectance_filtering_tpu_torch.cli import decompose as dec_cli
     from reflectance_filtering_tpu_torch.cli import filter as filt_cli
-    from reflectance_filtering_tpu_torch.losses.whdr import whdr, whdr_batch
+    from reflectance_filtering_tpu_torch.losses.whdr import (
+        whdr, whdr_batch, whdr_per_image)
     from reflectance_filtering_tpu_torch.models.networks import (
         ReflectanceNet, params_from_numpy, seeded_reference_params)
     from reflectance_filtering_tpu_torch.ops import _build
@@ -1279,7 +1288,7 @@ def main():
     from reflectance_filtering_tpu_torch.ops.cnn_kernel import (
         pack_weights, reflectance_cnn, reflectance_cnn_plain)
     from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-        gather_pairs, gather_pairs_plain)
+        gather_pairs, gather_pairs_plain, whdr_scores)
     from reflectance_filtering_tpu_torch.utils import serving
     from reflectance_filtering_tpu_torch.utils.serving import pipeline_fn
     from reflectance_filtering_tpu_torch.cli import train as train_cli
@@ -1539,6 +1548,16 @@ def main():
                                   (l2k - l2p).abs().max().item())
         check(torch.equal(l1k, l1p) and torch.equal(l2k, l2p),
               "K3 bitwise equal to indexing")
+        # WHDR's scores in one launch beside K3, against the composition
+        # on the card (kernels=False), on the same plane
+        score_comps = torch.from_numpy(make_synthetic_comps(
+            args.seed + 3, K, batch=B)).to(dev)
+        scores_k = whdr_scores(plane, score_comps, 0.1)
+        scores_p = whdr_per_image(plane, score_comps, kernels=False)
+        torch.cuda.synchronize()
+        errs["whdr_scores"] = (scores_k - scores_p).abs().max().item()
+        check(errs["whdr_scores"] <= 1e-6, "WHDR scores within 1e-6 of the "
+              "composition (max {:.2e})".format(errs["whdr_scores"]))
 
         # K4: the main paths' stack of planes, one 4K plane, the guided
         # CLI's --subsample=4 moment planes (13 at 64x64, radius
@@ -1884,6 +1903,7 @@ def main():
                 "cnn_train_fwd": k7.trunk_forward,
                 "cnn_train_bwd": k7.trunk_backward,
                 "whdr_scatter": scatter_pairs,
+                "whdr_scores": whdr_scores,
                 "guide_stats": guide_stats,
                 "guided_apply_cached": guided_apply_cached,
                 "cnn_train_bwd_split": k7.trunk_backward_variant}
@@ -1913,7 +1933,10 @@ def main():
             q = bf(img)
             served.append((q, whdr_batch(q / 255.0, cmp)))
         launches = read_launches("bf serving", (
-            "cnn_fwd", "bilateral_gray_self", "whdr_gather"))
+            "cnn_fwd", "bilateral_gray_self", "whdr_scores"))
+        check(launches["whdr_scores"] == len(requests)
+              and launches["whdr_gather"] == 0,
+              "bf serving scores WHDR in one launch a batch, no K3")
         for (q, score), img, cmp in zip(served, requests, comps):
             check(q.shape == (B, H, W) and bool(torch.isfinite(q).all())
                   and q.min().item() >= 0 and q.max().item() <= 255,
@@ -1946,7 +1969,10 @@ def main():
             q = gf(img)
             gf_served.append((q, whdr_batch(q / 255.0, cmp)))
         gf_launches = read_launches("gf serving", (
-            "cnn_fwd", "guided_filter", "whdr_gather"))
+            "cnn_fwd", "guided_filter", "whdr_scores"))
+        check(gf_launches["whdr_scores"] == len(gf_requests)
+              and gf_launches["whdr_gather"] == 0,
+              "gf serving scores WHDR in one launch a batch, no K3")
         print("K5's fused launches in the gf serving run: {}".format(
             guided_filter_fused.fused_launches))
         check(guided_filter_fused.fused_launches
@@ -2081,7 +2107,7 @@ def main():
     train_data = training_set(args.seed + 7, TRAIN_N, K)
     flagship = NetworkConfig()
     train_kernels = ("cnn_train_fwd", "cnn_train_bwd", "whdr_gather",
-                     "whdr_scatter")
+                     "whdr_scatter", "whdr_scores")
 
     def train_run(steps, **kw):
         losses = []
@@ -2496,6 +2522,9 @@ def main():
         "whdr_scatter": ("reflectance_filtering_tpu_torch/csrc/whdr_gather.cu",
                          "reflectance_filtering_tpu/ops/"
                          "whdr_gather_pallas.py:80"),
+        "whdr_scores": ("reflectance_filtering_tpu_torch/csrc/whdr_gather.cu",
+                        "reflectance_filtering_tpu_torch/losses/whdr.py "
+                        "_whdr_per_image (its composition around K3)"),
         "guide_stats": ("reflectance_filtering_tpu_torch/csrc/guided_chain.cu",
                         "reflectance_filtering_tpu/ops/guided_pallas.py:717"),
         "guided_apply_cached": (
@@ -2508,7 +2537,8 @@ def main():
     # each kernel's launches in the run of its own path
     launches["box_filter"] = cli_launches["box_filter"]
     launches["guided_filter"] = gf_launches["guided_filter"]
-    for name in ("cnn_train_fwd", "cnn_train_bwd", "whdr_scatter"):
+    for name in ("cnn_train_fwd", "cnn_train_bwd", "whdr_gather",
+                 "whdr_scatter"):
         launches[name] = train_launches[name]
     for name in ("guide_stats", "guided_apply_cached"):
         launches[name] = chain_launches["4K"][name]

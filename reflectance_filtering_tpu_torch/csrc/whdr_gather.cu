@@ -53,6 +53,29 @@
 //     time from shared memory staged in chunks; the first j that reads a
 //     pixel sums every point that reads it, in j order.
 // Both sum the same cotangents in the same order, so they agree bitwise.
+//
+// Beside K3: a batch's WHDR scores in one kernel, where no gradient is
+// wanted (served batches, the training step's whdr_original metric).  It
+// replaces no TPU kernel: it replaces the composition that
+// losses/whdr.py::_whdr_per_image builds around K3 (the indices, the valid
+// mask, the eps floor, the classification and the two sums, ~35 ATen
+// launches on [B, K] arrays), which the host issued slower than the card
+// ran it.  What it computes, row by row as the composition does:
+//   num = (int) comparisons[b, K, 0]; row k is valid iff k < num;
+//   a coordinate is clamp((int)(v * n), 0, n - 1), truncated as
+//   .to(torch.int32) truncates (cvt.rzi, saturating, NaN -> 0), darker
+//   likewise; l1, l2 the plane's values floored at float32 eps, NaN kept
+//   (torch.maximum); the class is 1 if l2 / l1 > t, else 2 if l1 / l2 > t,
+//   else 0, t the float32 threshold 1 + delta; err sums the weights of the
+//   valid rows whose class differs from darker, wsum those of the valid
+//   rows; the score is err / wsum (float32) when wsum > 0, else 0.
+// What bounds it: nothing on the card; at B = 32, K = 1,181 it reads
+// ~0.9 MB (the rows and ~76k scattered values), and one launch is its
+// cost.  Design: a block an image, its threads striding over the rows with
+// the sums in float64 registers, then a fixed tree (warp shuffles, then
+// the warps' partials in shared memory), so the bits repeat from run to run
+// and in a captured graph.  The float32 division and multiply are written
+// as __fdiv_rn and __fmul_rn, so no compiler setting can change them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +91,7 @@ constexpr int kScatterThreads = 128;  // points per block, one per thread
 constexpr int kSortMax = 16384;       // points an image that one block sorts
 constexpr int kSortThreads = 1024;
 constexpr int kMaxBands = 8;          // blocks an image on the sort path
+constexpr int kScoreThreads = 512;    // threads of a WHDR-scores block
 
 __global__ void __launch_bounds__(kThreads)
 whdr_gather_kernel(const float* __restrict__ plane, const int* __restrict__ y1,
@@ -83,6 +107,69 @@ whdr_gather_kernel(const float* __restrict__ plane, const int* __restrict__ y1,
   const int xb = min(max(x2[i], 0), w - 1);
   l1[i] = __ldg(img + static_cast<int64_t>(ya) * w + xa);
   l2[i] = __ldg(img + static_cast<int64_t>(yb) * w + xb);
+}
+
+// a normalized coordinate as the composition's pixel index: v * n in
+// float32, truncated toward zero (saturating, NaN -> 0), clamped to the plane
+__device__ __forceinline__ int score_coord(float v, int n) {
+  return min(max(__float2int_rz(__fmul_rn(v, static_cast<float>(n))), 0), n - 1);
+}
+
+// a gathered lightness floored at float32 eps; NaN stays NaN (torch.maximum)
+__device__ __forceinline__ float floor_eps(float l) {
+  constexpr float kEps = 1.1920928955078125e-07f;
+  return isnan(l) ? l : fmaxf(l, kEps);
+}
+
+// block b scores image b: out[b] = err / wsum over its valid rows, or 0
+__global__ void __launch_bounds__(kScoreThreads)
+whdr_scores_kernel(const float* __restrict__ plane, const float* __restrict__ comps,
+                   float* __restrict__ out, int h, int w, int k, float threshold) {
+  __shared__ double s_part[2][kScoreThreads / 32];
+  const int64_t b = blockIdx.x;
+  const float* img = plane + b * h * static_cast<int64_t>(w);
+  const float* rows = comps + b * (k + 1) * 6;
+  const int num = __float2int_rz(__ldg(rows + static_cast<int64_t>(k) * 6));
+  const int valid = min(max(num, 0), k);
+  double err = 0.0, wsum = 0.0;
+  for (int i = threadIdx.x; i < valid; i += kScoreThreads) {
+    const float* row = rows + static_cast<int64_t>(i) * 6;
+    const int x1 = score_coord(__ldg(row), w);
+    const int y1 = score_coord(__ldg(row + 1), h);
+    const int x2 = score_coord(__ldg(row + 2), w);
+    const int y2 = score_coord(__ldg(row + 3), h);
+    const int darker = __float2int_rz(__ldg(row + 4));
+    const float weight = __ldg(row + 5);
+    const float l1 = floor_eps(__ldg(img + static_cast<int64_t>(y1) * w + x1));
+    const float l2 = floor_eps(__ldg(img + static_cast<int64_t>(y2) * w + x2));
+    const int alg = __fdiv_rn(l2, l1) > threshold ? 1 : (__fdiv_rn(l1, l2) > threshold ? 2 : 0);
+    wsum += weight;
+    if (alg != darker) err += weight;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    err += __shfl_down_sync(0xffffffffu, err, off);
+    wsum += __shfl_down_sync(0xffffffffu, wsum, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_part[0][warp] = err;
+    s_part[1][warp] = wsum;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  constexpr int kWarps = kScoreThreads / 32;
+  err = lane < kWarps ? s_part[0][lane] : 0.0;
+  wsum = lane < kWarps ? s_part[1][lane] : 0.0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    err += __shfl_down_sync(0xffffffffu, err, off);
+    wsum += __shfl_down_sync(0xffffffffu, wsum, off);
+  }
+  if (lane == 0) {
+    const float e = static_cast<float>(err), s = static_cast<float>(wsum);
+    out[b] = s > 0.0f ? __fdiv_rn(e, s) : 0.0f;
+  }
 }
 
 // the pixel (y * w + x, clamped as the gather clamps) of point j of image
@@ -324,6 +411,18 @@ extern "C" int rf_whdr_gather(const float* plane, const int* y1, const int* x1,
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   whdr_gather_kernel<<<blocks, kThreads, 0, stream>>>(plane, y1, x1, y2, x2, l1,
                                                       l2, h, w, k, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plane [b, h, w] f32 (h, w >= 1); comps [b, k + 1, 6] f32, the packed
+// comparisons; out [b] f32 (device): each image's WHDR, its classes taken
+// against the float32 threshold 1 + delta.  Returns the cudaError_t of the
+// launch.
+extern "C" int rf_whdr_scores(const float* plane, const float* comps, float* out, int b,
+                              int h, int w, int k, float threshold, cudaStream_t stream) {
+  if (b == 0) return static_cast<int>(cudaSuccess);
+  whdr_scores_kernel<<<static_cast<unsigned>(b), kScoreThreads, 0, stream>>>(
+      plane, comps, out, h, w, k, threshold);
   return static_cast<int>(cudaGetLastError());
 }
 

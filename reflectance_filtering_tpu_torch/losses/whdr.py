@@ -22,7 +22,9 @@ The comparisons blob is the packed format [K+1, 6] per image: rows
 [x1, y1, x2, y2, darker, weight] (normalized coords, NaN padded), last row
 metadata [num_comparisons, ...].  The batched gather goes through
 ``ops.whdr_gather.gather_pairs`` (K3 on CUDA, with K8 as its backward);
-classify, hinge and reduce are plain torch.  Lightness is floored at eps
+classify, hinge and reduce are plain torch.  The exact WHDR of a batch
+(``whdr_per_image``, ``whdr_batch``) on CUDA with no gradient wanted is one
+launch of ``ops.whdr_gather.whdr_scores`` instead, the same arithmetic.  Lightness is floored at eps
 with ``torch.maximum``, which splits the gradient evenly at a tie as
 ``jnp.maximum`` does.
 """
@@ -34,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.whdr_gather import gather_pairs, gather_pairs_plain
+from ..ops.whdr_gather import gather_pairs, gather_pairs_plain, whdr_scores
 from ..utils.profiling import span
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -123,6 +125,16 @@ def _batch_lightness_pairs(reflectance: torch.Tensor,
 
 
 def _whdr_per_image(reflectance, comparisons, delta, kernels):
+    """One launch of ``whdr_scores`` where the kernels serve a plane on
+    CUDA that needs no gradient (the channel mean first, in torch); the
+    composition around the gather on the CPU, with ``kernels=False`` and
+    where a gradient is wanted."""
+    if (kernels and reflectance.is_cuda
+            and not (reflectance.requires_grad and torch.is_grad_enabled())):
+        plane = (reflectance if reflectance.dim() == 3
+                 else reflectance.mean(dim=-1))
+        return whdr_scores(plane.contiguous(), comparisons.contiguous(),
+                           delta)
     l1, l2, darker, weight, valid, _ = _batch_lightness_pairs(
         reflectance, comparisons, kernels)
     return _classify_error(l1, l2, darker, weight, valid, delta)

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # gcc, gsc, stream
     "rf_bilateral_joint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _P],
+    # plane, comparisons, out, b, h, w, k, threshold, stream
+    "rf_whdr_scores": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # y1, x1, y2, x2, g1, g2, dplane, b, h, w, k, stream
     "rf_whdr_scatter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rf_whdr_scatter_quadratic": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

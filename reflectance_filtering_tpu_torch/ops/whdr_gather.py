@@ -8,13 +8,20 @@ bitwise equal to indexing.  ``gather_pairs`` is differentiable with respect
 to the plane: its backward is :func:`scatter_pairs` (K8 on CUDA), which sums
 the cotangents of all points that read the same pixel, in a fixed order.
 
-At the serving shape (32 x 1,181) K3 runs ~2 us on the card, so a call
-costs its host path: the checks in one pass, one [2, B, K] allocation whose
-rows are l1 and l2, and one ctypes launch (``_build.launch``); the wrapper
-keeps each short, so that the call costs less host time than one indexing
-call (the benchmark's ``whdr_issue_ms`` reads the host time of a served
-batch's WHDR, K3 and its glue).  K8's wrapper takes the same path:
-its six tensors checked in one pass, one allocation, one launch.
+At 32 x 1,181 comparisons K3 runs ~2 us on the card, so a call costs its
+host path: the checks in one pass, one [2, B, K] allocation whose rows are
+l1 and l2, and one ctypes launch (``_build.launch``); the wrapper keeps
+each short, so that the call costs less host time than one indexing call.
+K8's wrapper takes the same path: its six tensors checked in one pass, one
+allocation, one launch.
+
+Where no gradient is wanted, :func:`whdr_scores` scores a whole batch in
+one launch beside K3 (``rf_whdr_scores``): the indices, the gather, the
+classification and the sums that ``losses/whdr.py`` otherwise composes
+from K3 and ~35 ATen launches (a served batch's WHDR, whose host time the
+benchmark's ``whdr_issue_ms`` reads).  Its wrapper takes K3's short host
+path; its plain version is that composition (``whdr_per_image(...,
+kernels=False)``).
 
 K8 runs one of two kernels, chosen by shape (:func:`sort_path`): up to
 ``SORT_MAX_POINTS`` points an image, each image's pixels are cut into
@@ -189,3 +196,43 @@ def gather_pairs(plane: torch.Tensor, y1: torch.Tensor, x1: torch.Tensor,
 
 
 gather_pairs.launches = 0
+
+
+def whdr_scores(plane: torch.Tensor, comparisons: torch.Tensor,
+                delta: float) -> torch.Tensor:
+    """Each image's exact WHDR [B] float32 from the lightness plane [B, H,
+    W] float32 and the packed comparisons [B, K+1, 6] float32 (rows [x1,
+    y1, x2, y2, darker, weight], the last row's first value the count of
+    valid rows), both contiguous on one CUDA device: one launch, with the
+    classes taken against the float32 threshold ``1 + delta``, as the
+    composition in ``losses/whdr.py`` compares.  Differentiable it is not;
+    the caller takes the composition where a gradient is wanted, and on the
+    CPU.  Nothing here waits for the card."""
+    if not (isinstance(plane, torch.Tensor) and plane.dtype == torch.float32
+            and plane.dim() == 3 and plane.is_contiguous()):
+        _build.check_tensor(plane, "plane", torch.float32, 3)
+    if not (isinstance(comparisons, torch.Tensor)
+            and comparisons.dtype == torch.float32
+            and comparisons.dim() == 3 and comparisons.is_contiguous()):
+        _build.check_tensor(comparisons, "comparisons", torch.float32, 3)
+    b, h, w = plane.shape
+    _, k1, cols = comparisons.shape
+    if comparisons.shape[0] != b or k1 < 1 or cols != 6 or not h * w:
+        raise ValueError("whdr_scores takes a plane [B, H, W] with H, W >= 1 "
+                         "and comparisons [B, K+1, 6], got {} and {}".format(
+                             tuple(plane.shape), tuple(comparisons.shape)))
+    if comparisons.device != plane.device or plane.device.type != "cuda":
+        raise ValueError("whdr_scores: plane and comparisons must share one "
+                         "CUDA device (the CPU takes whdr_per_image's "
+                         "composition), got {} and {}".format(
+                             plane.device, comparisons.device))
+    out = plane.new_empty((b,))
+    if b:
+        _build.launch("rf_whdr_scores", plane.device, plane.data_ptr(),
+                      comparisons.data_ptr(), out.data_ptr(), b, h, w,
+                      k1 - 1, 1.0 + delta)
+        _build.count(whdr_scores)
+    return out
+
+
+whdr_scores.launches = 0

@@ -34,3 +34,45 @@ def make_synthetic_comps(seed: int, k: int, batch: int = None) -> np.ndarray:
     c[:, k, 1] = 1.0
     c[:, k, 2] = 0
     return c[0] if batch is None else c
+
+
+def whdr_edge_cases(delta: float = 0.1):
+    """Batches where WHDR's truncation, masks and rounding decide the
+    score: (plane [8, 4, 5] float32, comparisons [8, 5, 6] float32,
+    expected per-image WHDR [8]), each image's score exact in float32.
+
+    Images: 0-2 ratios exactly at the float32 threshold t = 1 + delta (not
+    above it: class E) and one ulp above (darker 1); 3 coordinates 0.0 and
+    1.0 (1.0 clamped to the last pixel), one row wrong; 4 zero weights
+    only (a weight sum of 0 scores 0); 5 a NaN lightness (class E) beside
+    one floored at eps; 6 num = 0 over finite rows; 7 num < K, the rest
+    NaN-padded.  Pixels are addressed at their centres."""
+    h, w, k = 4, 5, 4
+    t = np.float32(1.0 + delta)
+    plane = np.full((h, w), 0.25, np.float32)
+    plane[0, :5] = [1.0, t, np.nextafter(t, np.float32(2.0)), 0.0, np.nan]
+    plane[h - 1, w - 1] = 0.5
+
+    def at(y, x):
+        return [(x + 0.5) / w, (y + 0.5) / h]
+
+    corner = [0.0, 0.0, 1.0, 1.0]          # (0, 0) against (h-1, w-1)
+    images = [  # (rows [x1, y1, x2, y2, darker, weight], num, expected)
+        ([at(0, 0) + at(0, 1) + [1, 1.0]], 1, 1.0),
+        ([at(0, 0) + at(0, 2) + [1, 1.0]], 1, 0.0),
+        ([at(0, 1) + at(0, 0) + [2, 1.0]], 1, 1.0),
+        ([corner + [2, 0.75], corner + [1, 0.25]], 2, 0.25),
+        ([at(0, 0) + at(0, 2) + [2, 0.0], at(0, 0) + at(0, 2) + [1, 0.0]],
+         2, 0.0),
+        ([at(0, 4) + at(0, 0) + [1, 0.5], at(0, 3) + at(0, 0) + [1, 0.5]],
+         2, 0.5),
+        ([at(0, 0) + at(0, 2) + [2, 1.0]] * k, 0, 0.0),
+        ([at(0, 0) + at(0, 2) + [2, 0.25], at(0, 0) + at(0, 2) + [1, 0.75]],
+         2, 0.25),
+    ]
+    comps = np.full((len(images), k + 1, 6), np.nan, np.float32)
+    for i, (rows, num, _) in enumerate(images):
+        comps[i, :len(rows)] = rows
+        comps[i, k, :3] = [num, 1.0, 0.0]
+    expected = np.array([e for _, _, e in images], np.float32)
+    return np.repeat(plane[None], len(images), axis=0), comps, expected

@@ -26,7 +26,8 @@ from reflectance_filtering_tpu_torch.ops.guided_kernel import (
     guided_filter_fused, guided_filter_fused_plain)
 from reflectance_filtering_tpu_torch.ops import cnn_train_kernel as k7
 from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-    gather_pairs, gather_pairs_plain, scatter_pairs, scatter_pairs_plain)
+    gather_pairs, gather_pairs_plain, scatter_pairs, scatter_pairs_plain,
+    whdr_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -336,6 +337,114 @@ def test_gather_kernel_one_allocation_and_failed_launch(dev, monkeypatch):
                                            "error 1"):
         gather_pairs(plane, *idx)
     assert gather_pairs.launches == before
+
+
+def _score_inputs(dev, case):
+    """(reflectance, comparisons) on the card for a WHDR-scores case: the
+    serving shape (32 x 256x256, K = 1,181), seeded; the same with images
+    NaN-padded past num (num = 0, num < K, num = K); three channels (the
+    mean taken first); the edge cases of ``whdr_edge_cases``."""
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        make_synthetic_comps, whdr_edge_cases)
+    if case == "edges":
+        plane, comps, _ = whdr_edge_cases()
+        return torch.from_numpy(plane).to(dev), torch.from_numpy(comps).to(
+            dev)
+    b, h, w, k = 32, 256, 256, 1181
+    comps = make_synthetic_comps(11, k, batch=b)
+    if case == "padded":
+        for i in range(b):
+            num = (0, k, 1, 600)[i % 4] if i % 8 < 4 else 37 * i
+            comps[i, num:k] = np.nan
+            comps[i, k, 0] = num
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shape = (b, h, w, 3) if case == "channels" else (b, h, w)
+    refl = torch.rand(shape, device=dev, generator=gen)
+    return refl, torch.from_numpy(comps).to(dev)
+
+
+@pytest.mark.parametrize("case", ["serving", "padded", "channels", "edges"])
+def test_whdr_scores_match_the_composition(dev, case):
+    """whdr_per_image on the card takes whdr_scores (one launch, no K3)
+    and agrees with the composition (kernels=False, on the card) within
+    1e-6; the edge cases (ratios at the float32 threshold, coordinates 0.0
+    and 1.0, zero weights, a NaN lightness, num = 0 and num < K) score
+    exactly what ``whdr_edge_cases`` expects."""
+    from reflectance_filtering_tpu_torch.losses.whdr import (
+        whdr_batch, whdr_per_image)
+    from reflectance_filtering_tpu_torch.utils.testimages import (
+        whdr_edge_cases)
+    refl, comps = _score_inputs(dev, case)
+    before = (whdr_scores.launches, gather_pairs.launches)
+    got = whdr_per_image(refl, comps)
+    mean = whdr_batch(refl, comps)
+    torch.cuda.synchronize()
+    assert (whdr_scores.launches - before[0],
+            gather_pairs.launches - before[1]) == (2, 0)
+    exp = whdr_per_image(refl, comps, kernels=False)
+    assert got.shape == (refl.shape[0],) and got.dtype == torch.float32
+    assert (got - exp).abs().max().item() <= 1e-6
+    assert abs(mean.item() - exp.mean().item()) <= 1e-6
+    if case == "edges":
+        expected = torch.from_numpy(whdr_edge_cases()[2]).to(dev)
+        assert torch.equal(got, expected) and torch.equal(exp, expected)
+    if case == "padded":
+        assert got[0].item() == 0.0 and got[8].item() == 0.0   # num = 0
+
+
+def test_whdr_scores_repeat_and_replay_bitwise(dev):
+    """At the serving shape two calls give the same bits, and a CUDA graph
+    that captured the call replays them (the capture counts no launch)."""
+    refl, comps = _score_inputs(dev, "padded")
+    first = whdr_scores(refl, comps, 0.1)
+    assert torch.equal(first, whdr_scores(refl, comps, 0.1))
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    before = whdr_scores.launches
+    with torch.cuda.graph(graph):
+        out = whdr_scores(refl, comps, 0.1)
+    assert whdr_scores.launches == before
+    out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
+def test_whdr_with_a_gradient_keeps_k3_and_k8(dev):
+    """A plane that requires grad, with grad enabled, keeps the
+    composition: the exact WHDR gathers through K3, the hinge through K3
+    and back through K8, and whdr_scores launches nothing; under no_grad
+    the same plane takes whdr_scores, with the same scores."""
+    from reflectance_filtering_tpu_torch.losses.whdr import (
+        whdr_hinge_batch, whdr_per_image)
+    refl, comps = _score_inputs(dev, "serving")
+    leaf = refl[:4].clone().requires_grad_()
+    comps = comps[:4]
+    counters = (whdr_scores, gather_pairs, scatter_pairs)
+    before = [fn.launches for fn in counters]
+    composed = whdr_per_image(leaf, comps)
+    whdr_hinge_batch(leaf, comps).backward()
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [0, 2, 1]
+    assert leaf.grad is not None
+    with torch.no_grad():
+        fused = whdr_per_image(leaf, comps)
+    assert whdr_scores.launches == before[0] + 1
+    assert (fused - composed).abs().max().item() <= 1e-6
+
+
+def test_whdr_scores_failed_launch_raises(dev, monkeypatch):
+    """An error the entry point reports raises with the CUDA error's text
+    and counts no launch."""
+    from reflectance_filtering_tpu_torch.ops import _build
+    refl, comps = _score_inputs(dev, "edges")
+    _build.lib()
+    monkeypatch.setitem(_build._fns, "rf_whdr_scores", lambda *args: 1)
+    before = whdr_scores.launches
+    with pytest.raises(RuntimeError, match="rf_whdr_scores failed: CUDA "
+                                           "error 1"):
+        whdr_scores(refl, comps, 0.1)
+    assert whdr_scores.launches == before
 
 
 @pytest.mark.parametrize("border", ["reflect", "reflect101"])
@@ -1327,7 +1436,8 @@ def test_train_chunk_replays_match_eager_steps(dev, solver, kernels):
     and every step's metrics within 1e-6 (bitwise where the kernels and
     torch's reductions repeat); capturable Adam, SGD as it is, and the
     plain versions (kernels=False) all capture.  The wrappers' counts follow
-    the launches: one K7 forward and backward, two K3 and one K8 a step,
+    the launches: one K7 forward and backward, one K3 and one K8 (the
+    hinge) and one whdr_scores (the whdr_original metric) a step,
     whether the step ran eagerly or as a replay, none in the capture."""
     from reflectance_filtering_tpu_torch.models.networks import (
         NetworkConfig, init_network)
@@ -1348,14 +1458,14 @@ def test_train_chunk_replays_match_eager_steps(dev, solver, kernels):
         solver, 1e-3, pb), kernels=kernels)
     cursor, stacked, eager = 5, [], []
     wrappers = (k7.trunk_forward, k7.trunk_backward, gather_pairs,
-                scatter_pairs)
+                scatter_pairs, whdr_scores)
     before = [fn.launches for fn in wrappers]
     for k in (loop.TRAIN_CHUNK_STEPS, 7):
         stacked.append(chunk(0, cursor, k).cpu())
         cursor = (cursor + k * bs) % n
     steps = loop.TRAIN_CHUNK_STEPS + 7
     assert [fn.launches - b for fn, b in zip(wrappers, before)] == (
-        [steps, steps, 2 * steps, steps] if kernels else [0, 0, 0, 0])
+        [steps] * 5 if kernels else [0] * 5)
     cursor = 5
     for _ in range(loop.TRAIN_CHUNK_STEPS + 7):
         met = step(im_d[cursor:cursor + bs], cp_d[cursor:cursor + bs])

@@ -13,10 +13,11 @@ from reflectance_filtering_tpu.losses.whdr import (
 from reflectance_filtering_tpu.ops.whdr_gather_pallas import (
     gather_pairs as jax_gather_pairs)
 from reflectance_filtering_tpu_torch.losses import whdr as tw
+from reflectance_filtering_tpu_torch.ops import _build
 from reflectance_filtering_tpu_torch.ops.whdr_gather import (
-    gather_pairs, gather_pairs_plain)
+    gather_pairs, gather_pairs_plain, whdr_scores)
 from reflectance_filtering_tpu_torch.utils.testimages import (
-    make_synthetic_comps)
+    make_synthetic_comps, whdr_edge_cases)
 
 
 def _indices(rng, b, k, h, w):
@@ -125,3 +126,85 @@ def test_whdr_single_image_matches_jax(rng):
                         torch.from_numpy(comps), 19, 26),
                     j_indices(jnp.asarray(comps), 19, 26)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+
+
+def _no_launch(*args, **kwargs):
+    raise AssertionError("_build.launch reached")
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("case", ["plain", "requires_grad", "no_grad"])
+def test_whdr_per_image_cpu_keeps_the_composition(channels, case, rng,
+                                                  monkeypatch):
+    """On the CPU whdr_per_image and whdr_batch compose K3's plain gather
+    with torch ops (what kernels=False computes), whether or not the plane
+    wants a gradient: the launcher is never reached and whdr_scores counts
+    nothing."""
+    monkeypatch.setattr(_build, "launch", _no_launch)
+    b, h, w, k = 3, 12, 17, 200
+    shape = (b, h, w) if channels is None else (b, h, w, channels)
+    refl = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    refl.requires_grad_(case != "plain")
+    comps = torch.from_numpy(_comps(5, k, b, valid=(150, 0, 200)))
+    before = (whdr_scores.launches, gather_pairs.launches)
+    with torch.set_grad_enabled(case != "no_grad"):
+        per = tw.whdr_per_image(refl, comps)
+        mean = tw.whdr_batch(refl, comps)
+    l1, l2, darker, weight, valid, _ = tw._batch_lightness_pairs(
+        refl.detach(), comps, kernels=False)
+    exp = tw._classify_error(l1, l2, darker, weight, valid, 0.1)
+    assert torch.equal(per, exp) and torch.equal(mean, exp.mean())
+    assert (whdr_scores.launches, gather_pairs.launches) == before
+
+
+def test_whdr_edge_cases_score_as_expected():
+    """The edge-case batches through the composition score what
+    ``whdr_edge_cases`` says, bit for bit, and as the JAX package scores
+    them: the class threshold is float32 1 + delta (a ratio equal to it is
+    not above it), coordinate 1.0 clamps to the last pixel, a weight sum
+    of 0 scores 0, a NaN lightness is class E, padded rows are masked."""
+    plane, comps, expected = whdr_edge_cases()
+    got = tw.whdr_per_image(torch.from_numpy(plane), torch.from_numpy(comps))
+    np.testing.assert_array_equal(got.numpy(), expected)
+    exp = np.asarray(j_whdr_per_image(jnp.asarray(plane), jnp.asarray(comps)))
+    np.testing.assert_array_equal(exp, expected)
+
+
+_BAD_SCORE_INPUTS = {
+    "plane float64": (lambda p, c: (p.double(), c), TypeError, "float32"),
+    "comparisons int32": (lambda p, c: (p, c.to(torch.int32)), TypeError,
+                          "float32"),
+    "plane [B, H, W, C]": (lambda p, c: (p[..., None], c), ValueError,
+                           "dimensions"),
+    "comparisons [B, K+1, 5]": (lambda p, c: (p, c[..., :5].contiguous()),
+                                ValueError, r"\[B, K\+1, 6\]"),
+    "batch mismatch": (lambda p, c: (p[:2].contiguous(), c), ValueError,
+                       r"\[B, K\+1, 6\]"),
+    "no metadata row": (lambda p, c: (p, c[:, :0].contiguous()), ValueError,
+                        r"\[B, K\+1, 6\]"),
+    "empty plane": (lambda p, c: (p[:, :0].contiguous(), c), ValueError,
+                    "H, W >= 1"),
+    "strided plane": (lambda p, c: (p.transpose(1, 2), c), ValueError,
+                      "contiguous"),
+    "not a tensor": (lambda p, c: (p.numpy(), c), TypeError, "torch.Tensor"),
+    "on the CPU": (lambda p, c: (p, c), ValueError, "CUDA device"),
+    "two devices": (lambda p, c: (p, c.to("meta")), ValueError,
+                    "share one CUDA device"),
+    "meta": (lambda p, c: (p.to("meta"), c.to("meta")), ValueError,
+             "CUDA device"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_SCORE_INPUTS))
+def test_whdr_scores_checks_raise_before_any_launch(case, monkeypatch):
+    """whdr_scores refuses a wrong dtype, shape, layout or device with the
+    reason, before it allocates or launches: the launcher is never reached
+    and the counter does not move."""
+    monkeypatch.setattr(_build, "launch", _no_launch)
+    plane, comps, _ = whdr_edge_cases()
+    make, error, match = _BAD_SCORE_INPUTS[case]
+    args = make(torch.from_numpy(plane), torch.from_numpy(comps))
+    before = whdr_scores.launches
+    with pytest.raises(error, match=match):
+        whdr_scores(*args, 0.1)
+    assert whdr_scores.launches == before
