@@ -8,8 +8,9 @@ window of ``--seconds``, and its sampled outputs are compared with the
 reference (the lower readings).  On the first ``--control`` seeds the
 control (the reference one precision step lower, in the program's place)
 is compared instead, on the same sampled requests (the upper readings);
-each named fault (``faults.py``) is planted under the timed path and read
-on the first ``--control`` seeds too.  Prints one JSON line a reading and a
+each named fault, one of those the cell's entry declares (``FAULTS``,
+``faults.py``), is planted under the timed path and read on the first
+``--control`` seeds too.  Prints one JSON line a reading and a
 summary: each number's largest program reading and smallest control and
 fault readings.  The benchmark's own runs never run this.
 """
@@ -41,6 +42,12 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     cell = harness.Cell.load(args.workload)
     entry = cell.entry()
+    planted = list(filter(None, args.faults.split(",")))
+    unknown = [f for f in planted if f not in entry.FAULTS]
+    if unknown:
+        print("calibrate.py: entry '{}' takes no fault {}".format(
+            cell.traffic["entry"], ", ".join(unknown)), file=sys.stderr)
+        return 2
     seeds = [args.first_seed + 7919 * i for i in range(args.seeds)]
     table = {}
 
@@ -66,7 +73,7 @@ def main(argv=None) -> int:
         read("program", seed)
     for seed in seeds[:args.control]:
         read("control", seed, control=True)
-    for fault in filter(None, args.faults.split(",")):
+    for fault in planted:
         for seed in seeds[:args.control]:
             with faults.plant(cell.traffic["entry"], fault):
                 read("fault:" + fault, seed)

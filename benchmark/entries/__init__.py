@@ -4,10 +4,15 @@ mix's ``entry``.  Each module has
 * ``TRAFFIC``: the traffic keys it reads, besides ``entry``; a mix with
   any other key is refused (:meth:`benchmark.harness.Cell.entry`), so that
   a mix that needs other code comes with an entry of its own;
+* ``FAULTS``: the faults its cells take, each name with the context
+  manager that plants it under the timed path (``benchmark/faults.py``);
+* ``CPU_SIZES``: the ``traffic`` keys, and the ``config`` keys, that its
+  cells take in the CPU tests, a size a CPU holds on the same code paths;
 * ``Session(config, traffic, seed, device)``: set-up, the inputs and
   weights from the seed, the program built and its shapes warmed;
 * ``Session.window(seconds, trace_calls)``: the window, its end-to-end
-  numbers, and with ``trace_calls`` that many calls traced;
+  numbers, what the metric readers read (``model_flops``, a network's
+  ``conv_bound_s``), and with ``trace_calls`` that many calls traced;
 * ``Session.release()``: the program's objects dropped, the inputs and
   the sampled outputs kept;
 * ``judge(config, traffic, inputs, outputs, device)``: the numbers that

@@ -9,7 +9,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from .. import closed_loop
+from .. import closed_loop, faults
 from . import widest
 from ..profiling import trace_calls as trace_calls_of
 from ..reference import filters
@@ -17,6 +17,11 @@ from ..traffic import generate
 
 # the traffic keys this entry reads
 TRAFFIC = ("pool", "warmup", "sample")
+FAULTS = faults.planted(faults.guided_chain, "unchanged", "half", "answer")
+# a cell cut to a size a CPU test holds: the same code paths on a small
+# frame, which the configuration sets
+CPU_SIZES = {"traffic": {"pool": 2, "warmup": 1, "sample": 2},
+             "config": {"height": 60, "width": 72}}
 
 
 class Session:

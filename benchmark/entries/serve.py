@@ -12,7 +12,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from .. import closed_loop, counts
+from .. import closed_loop, counts, faults
 from . import widest
 from ..profiling import trace_calls as trace_calls_of
 from ..reference import filters, flagship, whdr
@@ -21,6 +21,11 @@ from ..traffic import generate
 # the traffic keys this entry reads
 TRAFFIC = ("pipeline", "batch", "height", "width", "pool", "warmup",
            "sample", "metrics")
+FAULTS = faults.planted(faults.serving, "half", "answer", "score")
+# a cell cut to a size a CPU test holds: the same code paths
+CPU_SIZES = {"traffic": {"batch": 2, "height": 40, "width": 48, "pool": 3,
+                         "warmup": 1, "sample": 4},
+             "config": {}}
 
 
 class Session:

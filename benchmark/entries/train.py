@@ -18,7 +18,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from .. import closed_loop, counts
+from .. import closed_loop, counts, faults
 from . import widest
 from ..profiling import LEAD_CALLS, Session as TraceSession, kept
 from ..reference import train as ref_train
@@ -30,6 +30,12 @@ from ..traffic import generate
 CHECKED_STEPS = 3
 # the traffic keys this entry reads
 TRAFFIC = ("batch", "images", "height", "width")
+FAULTS = faults.planted(faults.training, "unchanged", "half", "answer",
+                        "stale_count")
+# a cell cut to a size a CPU test holds: the same code paths
+CPU_SIZES = {"traffic": {"batch": 4, "images": 12, "height": 24,
+                         "width": 32},
+             "config": {}}
 
 
 class WindowClosed(Exception):

@@ -29,7 +29,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from .. import closed_loop, counts_unet
+from .. import closed_loop, counts_unet, faults
 from . import widest
 from .train import CHECKED_STEPS, WindowClosed, _Recorder, _batches, _on
 from ..profiling import LEAD_CALLS, Session as TraceSession, kept
@@ -39,6 +39,15 @@ from ..traffic import generate
 
 # the traffic keys this entry reads
 TRAFFIC = ("batch", "images", "height", "width")
+FAULTS = faults.planted(faults.training, "unchanged", "half", "answer",
+                        "stale_count")
+# a cell cut to a size a CPU test holds: the same code paths; 24x32 is
+# divisible by 8, as the network's three strides need
+CPU_SIZES = {"traffic": {"batch": 4, "images": 12, "height": 24,
+                         "width": 32},
+             "config": {}}
+
+
 def _network(config: Dict):
     net = config["network"]
     return net["num_layers"], net["kernel_pad"]
@@ -181,6 +190,8 @@ class Session:
                           bs * got["requests"] / got["wall_s"]}
         got["model_flops"] = counts_unet.train_step_flops(bs, h, w, n,
                                                           2 * p + 1)
+        got["conv_bound_s"] = counts_unet.conv_bound_s(bs, h, w, n,
+                                                       2 * p + 1)
         got["per_call"] = chunk
         return got
 

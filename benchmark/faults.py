@@ -1,13 +1,17 @@
 """Faults planted under the timed path, for the readings that set a cell's
 limits (``calibrate.py``) and for the tests that see ``correct`` come out
-false.  Each is a context manager that patches the program while it is
-open; the names say what the fault does:
+false.  An entry module declares the faults its cells take (``FAULTS``: a
+fault's name and the context manager that plants it, most drawn from the
+planters here by :func:`planted`), and :func:`plant` reads that
+declaration, so an entry added later brings its faults, or a planter of
+its own, in its own file.  A planter patches the program while it is open;
+the names say what the fault does:
 
-* ``unchanged``: a step returns its state unchanged (training: Adam's step
-  does nothing; the chain: one iteration fewer);
+* ``unchanged``: a step returns its state unchanged (:func:`training`:
+  Adam's step does nothing; :func:`guided_chain`: one iteration fewer);
 * ``half``: half of the batch left out (training: the loss's mean over the
-  first half; serving: the second half's outputs zero; the chain: the
-  lower half of the frame left unfiltered);
+  first half; :func:`serving`: the second half's outputs zero; the chain:
+  the lower half of the frame left unfiltered);
 * ``answer``: an answer altered where it is produced (training: the
   reported loss 1% high; serving: one image's levels one higher; the
   chain: one value one level higher);
@@ -18,41 +22,50 @@ open; the names say what the fault does:
 from __future__ import annotations
 
 import contextlib
+import functools
+from typing import Callable, ContextManager, Dict
 from unittest import mock
 
 import torch
 
-FAULTS = {"serve": ("half", "answer", "score"),
-          "chain": ("unchanged", "half", "answer"),
-          "train": ("unchanged", "half", "answer", "stale_count")}
+from .harness import load_entry
 
 
-@contextlib.contextmanager
-def plant(entry: str, fault: str):
-    if fault not in FAULTS[entry]:
+def plant(entry: str, fault: str) -> ContextManager:
+    """The context manager that plants ``fault`` under the timed path of
+    entry ``entry``, as the entry's ``FAULTS`` declares it."""
+    declared = load_entry(entry).FAULTS
+    if fault not in declared:
         raise ValueError("no fault '{}' for entry '{}'".format(fault, entry))
-    with globals()["_" + entry](fault):
-        yield
+    return declared[fault]()
+
+
+def planted(planter: Callable[[str], ContextManager], *names: str
+            ) -> Dict[str, Callable[[], ContextManager]]:
+    """An entry's ``FAULTS``: each of ``names`` planted by
+    ``planter(name)``."""
+    return {name: functools.partial(planter, name) for name in names}
 
 
 @contextlib.contextmanager
-def _serve(fault: str):
+def serving(fault: str):
+    """A fault of ``pipeline_fn``'s forward or of ``whdr_per_image``."""
     from reflectance_filtering_tpu_torch.losses import whdr
-    from reflectance_filtering_tpu_torch.utils import serving
+    from reflectance_filtering_tpu_torch.utils.serving import FlagshipModule
 
-    forward = serving.FlagshipModule.forward
+    forward = FlagshipModule.forward
     per_image = whdr.whdr_per_image
     if fault == "half":
         def patched(self, x):
             q = forward(self, x[:x.shape[0] // 2])
             return torch.cat([q, torch.zeros_like(q[:x.shape[0] - len(q)])])
-        target, name = serving.FlagshipModule, "forward"
+        target, name = FlagshipModule, "forward"
     elif fault == "answer":
         def patched(self, x):
             q = forward(self, x)
             q[0] = torch.clamp(q[0] + 1.0, 0.0, 255.0)
             return q
-        target, name = serving.FlagshipModule, "forward"
+        target, name = FlagshipModule, "forward"
     else:
         def patched(*args, **kwargs):
             w = per_image(*args, **kwargs)
@@ -64,7 +77,8 @@ def _serve(fault: str):
 
 
 @contextlib.contextmanager
-def _chain(fault: str):
+def guided_chain(fault: str):
+    """A fault of ``guided_filter_iterated``."""
     from reflectance_filtering_tpu_torch.ops import guided
 
     iterated = guided.guided_filter_iterated
@@ -85,7 +99,8 @@ def _chain(fault: str):
 
 
 @contextlib.contextmanager
-def _train(fault: str):
+def training(fault: str):
+    """A fault of ``fit``'s optimizer, loss or reported metrics."""
     from reflectance_filtering_tpu_torch.train import loop
 
     if fault in ("unchanged", "stale_count"):

@@ -8,9 +8,8 @@ The readings are those of traced calls: CUPTI, which the session runs,
 lengthens each launch a span holds, so a span over many launches reads
 longer than the same issue untraced.
 
-A checkout of the program older than its spans (its ``profiling`` module
-has no ``spans``) gives None; a ``profiling`` module that fails to import
-fails the run."""
+A ``profiling`` module that fails to import, or has no ``spans``, fails
+the run."""
 from __future__ import annotations
 
 import statistics
@@ -20,10 +19,8 @@ from reflectance_filtering_tpu_torch.utils import profiling
 
 
 def program_spans(name: str) -> list:
-    """The program's records of span ``name``, oldest first; none where
-    the program records no spans."""
-    spans = getattr(profiling, "spans", None)
-    return [] if spans is None else spans(name)
+    """The program's records of span ``name``, oldest first."""
+    return profiling.spans(name)
 
 
 def traced_median_ms(run, name: str) -> Optional[float]:

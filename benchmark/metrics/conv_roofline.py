@@ -1,10 +1,12 @@
 """The step's convolutions (cuDNN's forward, data-gradient and
 weight-gradient kernels, the transposed convolutions among them): their
-bound a step (3 x 2 x the network's MACs at the TF32 peak,
-``counts_unet.conv_bound_s``) over their device time a step.  The kernels
-matched a step must be at least the convolutions the program counted a
-step (``conv2d.launches`` and ``deconv2d.launches``, where the program
-counts them), else the patterns miss some."""
+bound a step over their device time a step.  The bound is the entry's
+(``conv_bound_s`` in the window: for the uNet, 3 x 2 x the network's MACs
+at the TF32 peak, ``counts_unet.conv_bound_s``), so that each network
+counts its own; a window without it gives None.  The kernels matched a
+step must be at least the convolutions the program counted a step
+(``conv2d.launches`` and ``deconv2d.launches``, where the program counts
+them), else the patterns miss some."""
 from __future__ import annotations
 
 import re
@@ -23,9 +25,8 @@ KERNELS = (r"cudnn", r"xmma", r"cutlass", r"fft", r"DSE::",
 
 
 def read(run):
-    from benchmark import counts_unet
     from benchmark.metrics._shares import roofline
-    if not run.calls:
+    if not run.calls or "conv_bound_s" not in run.window:
         return None
     per_step = sum(1 for c in run.calls for name, _, _ in c.events
                    if any(re.search(p, name) for p in KERNELS)) / (
@@ -36,7 +37,4 @@ def read(run):
             "conv_roofline: {:.1f} kernels a step match the patterns, under "
             "the {:.1f} convolutions the program issued a step".format(
                 per_step, counted))
-    net, traffic = run.config["network"], run.traffic
-    return roofline(run, KERNELS, counts_unet.conv_bound_s(
-        traffic["batch"], traffic["height"], traffic["width"],
-        net["num_layers"], 2 * net["kernel_pad"] + 1))
+    return roofline(run, KERNELS, run.window["conv_bound_s"])

@@ -1,9 +1,9 @@
 """The host's time to issue a served batch's WHDR: the median over the
 traced requests of the program's span ``whdr.per_image``
-(``losses/whdr.py::whdr_per_image``: K3 and the glue around it),
-recorded while the card's trace ran.  CUPTI lengthens each of its ~30
-launches, so this traced reading lies above the untraced issue, more than
-``forward_issue_ms`` does."""
+(``losses/whdr.py::whdr_per_image``: on the card, with no gradient
+wanted, its checks and one ``whdr_scores`` launch), recorded while the
+card's trace ran.  CUPTI lengthens the launch, so this traced reading
+lies above the untraced issue."""
 LAYER = "serving"
 
 

@@ -22,25 +22,17 @@ def pytest_configure(config):
         "markers", "cuda: needs an NVIDIA GPU; the test skips without one")
 
 
-# each cell cut to a size a CPU test holds: the same code paths
-SMALL = {"serve": {"batch": 2, "height": 40, "width": 48, "pool": 3,
-                   "warmup": 1, "sample": 4},
-         "train": {"batch": 4, "images": 12, "height": 24, "width": 32},
-         "chain": {"pool": 2, "warmup": 1, "sample": 2}}
-SMALL_FRAME = {"height": 60, "width": 72}
-
-
 @pytest.fixture
 def small_cell():
-    """name -> cell ``name`` of BENCHMARK.json, its shapes cut for the
-    CPU."""
+    """name -> cell ``name`` of BENCHMARK.json, cut to its entry's CPU
+    sizes (``CPU_SIZES``)."""
     from benchmark import harness
 
     def load(name):
         cell = copy.deepcopy(harness.Cell.load(name))
-        cell.traffic.update(SMALL[cell.traffic["entry"]])
-        if cell.traffic["entry"] == "chain":
-            cell.config.update(SMALL_FRAME)
+        sizes = harness.load_entry(cell.traffic["entry"]).CPU_SIZES
+        cell.traffic.update(sizes["traffic"])
+        cell.config.update(sizes["config"])
         return cell
     return load
 

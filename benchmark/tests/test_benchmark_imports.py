@@ -2,6 +2,7 @@
 reference imports nothing of the program: top-level module names compared
 whole (the port's name begins with the JAX package's)."""
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -41,15 +42,16 @@ def test_no_file_imports_jax_and_the_reference_not_the_program():
 
 
 def test_loaded_modules_hold_no_jax():
-    """Import the runner, every module of the benchmark and every module
-    of the program that an entry uses, in a fresh process."""
+    """Import the runner, every module of the benchmark, every entry that
+    a traffic mix names and every module of the program that an entry
+    uses, in a fresh process."""
     code = """
-import importlib, json, os, sys
+import glob, importlib, json, os, sys
 sys.path.insert(0, {root!r})
 import benchmark.run
 from benchmark import harness
-for entry in ("serve", "chain", "train"):
-    harness.load_entry(entry)
+for path in glob.glob(os.path.join(harness.BENCH_DIR, "traffic", "*.json")):
+    harness.load_entry(harness.load_json(path)["entry"])
 for m in harness.manifest()["per_layer"]:
     harness.load_metric(m["name"])
 import benchmark.calibrate, benchmark.faults
@@ -67,5 +69,8 @@ print(json.dumps(sorted(sys.modules)))
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     tops = {name.split(".")[0] for name in loaded}
     assert not tops & FORBIDDEN, tops & FORBIDDEN
-    assert "benchmark.reference.train" in loaded
+    entries = {"benchmark.entries." + harness.load_json(path)["entry"]
+               for path in glob.glob(os.path.join(BENCH, "traffic",
+                                                  "*.json"))}
+    assert entries | {"benchmark.reference.train"} <= set(loaded)
     assert PROGRAM in tops

@@ -133,6 +133,37 @@ def test_every_cell_file_exists_and_is_read():
         assert harness.load_json(path)["reduced"] == c["reduced"]
 
 
+def _traffic_entries():
+    """entry -> the cells whose mix names it, for every mix in
+    ``traffic/``."""
+    out = {}
+    for name in sorted(os.listdir(os.path.join(harness.BENCH_DIR,
+                                               "traffic"))):
+        if name.endswith(".json"):
+            traffic = harness.load_json(os.path.join(harness.BENCH_DIR,
+                                                     "traffic", name))
+            out.setdefault(traffic["entry"], []).extend(
+                w["name"] for w in SPEC["workloads"]
+                if w["traffic"] == name[:-len(".json")])
+    return out
+
+
+@pytest.mark.parametrize("entry, cells", sorted(_traffic_entries().items()))
+def test_each_entry_declares_its_faults_and_cpu_sizes(entry, cells):
+    """What the tests need of an entry is in the entry's module: the
+    faults its cells take, and the sizes they take on the CPU, each a key
+    its traffic mixes and configurations have."""
+    module = harness.load_entry(entry)
+    assert module.FAULTS and all(callable(f) for f in module.FAULTS.values())
+    assert set(module.CPU_SIZES) == {"traffic", "config"}
+    assert module.CPU_SIZES["traffic"]
+    assert set(module.CPU_SIZES["traffic"]) <= set(module.TRAFFIC)
+    for name in cells:
+        cell = harness.Cell.load(name)
+        assert set(module.CPU_SIZES["traffic"]) <= set(cell.traffic)
+        assert set(module.CPU_SIZES["config"]) <= set(cell.config)
+
+
 @pytest.mark.parametrize("name", [w["name"] for w in SPEC["workloads"]])
 def test_a_traffic_key_no_entry_reads_is_refused(name):
     """A mix that asks for something its entry does not do (another loop,

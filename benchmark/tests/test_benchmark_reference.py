@@ -120,9 +120,12 @@ def test_control_is_not_correct(small_cell, name):
     assert any(readings[k] > v for k, v in cell.limits.items()), readings
 
 
+def _entry(name):
+    return harness.Cell.load(name).traffic["entry"]
+
+
 FAULTS = [(name, fault) for name in CELLS
-          for fault in faults.FAULTS[harness.Cell.load(name)
-                                     .traffic["entry"]]]
+          for fault in harness.load_entry(_entry(name)).FAULTS]
 
 
 @pytest.mark.parametrize("name, fault", FAULTS)
@@ -131,6 +134,41 @@ def test_planted_fault_is_not_correct(small_cell, name, fault):
     with faults.plant(cell.traffic["entry"], fault):
         out = _run(cell, name, 2 ** 31 + 11)
     assert not out["correct"], out["checks"]
+
+
+def _program_state():
+    """The id of each attribute of the program's loaded modules and of
+    their classes."""
+    import sys
+    state = {}
+    for name, module in list(sys.modules.items()):
+        if not name.startswith("reflectance_filtering_tpu_torch."):
+            continue
+        for key, value in list(vars(module).items()):
+            state[name, key] = id(value)
+            if isinstance(value, type):
+                for attr, v in vars(value).items():
+                    state[name, key, attr] = id(v)
+    return state
+
+
+@pytest.mark.parametrize("entry, fault", sorted(
+    {(_entry(name), fault) for name, fault in FAULTS}))
+def test_each_declared_fault_plants(entry, fault):
+    """Each fault an entry declares patches the program while it is open
+    and leaves it as it was after."""
+    with faults.plant(entry, fault):
+        pass                        # loads the modules it patches
+    before = _program_state()
+    with faults.plant(entry, fault):
+        inside = _program_state()
+    assert _program_state() == before
+    assert inside != before, "the fault patched nothing"
+
+
+def test_an_undeclared_fault_is_refused():
+    with pytest.raises(ValueError, match="no fault 'no_such_fault'"):
+        faults.plant(_entry(CELLS[0]), "no_such_fault")
 
 
 @pytest.mark.cuda
@@ -149,8 +187,8 @@ def test_few_bytes_far_off_are_not_correct(gen, name):
     each byte by how far it is off."""
     from unittest import mock
 
-    from benchmark.entries import serve
     cell = harness.Cell.load(name)
+    serve = cell.entry()
     ref = torch.randint(0, 156, (2, 256, 256), generator=gen,
                         dtype=torch.uint8)
     comps = generate.comparisons(gen, 2, 50)

@@ -1,7 +1,7 @@
 """The readers of the program's spans on a scripted run and scripted span
 records: the median of the last ``len(run.calls)`` records of the span,
-None where there are fewer, None from a program that records no spans,
-and an error where the program's profiling module fails to import."""
+None where there are fewer, and an error from a program that records no
+spans or whose profiling module fails to import."""
 import types
 
 import pytest
@@ -49,17 +49,20 @@ def test_reader_takes_the_median_of_the_traced_calls_records(metric,
 
 
 def test_readers_give_none_from_a_program_without_spans(monkeypatch):
+    """No reader gives None for a program whose ``profiling`` has no
+    ``spans``: the program has had them since the spans were added, so
+    the reader fails, and the traced run with it."""
     from reflectance_filtering_tpu_torch.utils import profiling
     monkeypatch.delattr(profiling, "spans")
-    assert _spans.program_spans("serve.forward") == []
     for metric in READERS:
-        assert harness.load_metric(metric).read(_run(2)) is None
+        with pytest.raises(AttributeError, match="spans"):
+            harness.load_metric(metric).read(_run(2))
 
 
 def test_readers_raise_where_the_programs_profiling_fails_to_import(
         monkeypatch):
-    """Only a missing ``spans`` gives None: a ``profiling`` module that
-    cannot be imported fails the reader, and the traced run with it."""
+    """A ``profiling`` module that cannot be imported fails the reader,
+    and the traced run with it."""
     import importlib
     import sys
     from reflectance_filtering_tpu_torch import utils

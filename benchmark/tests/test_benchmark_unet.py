@@ -11,6 +11,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark import counts_unet, harness
 from benchmark.entries import train_unet
+from benchmark.metrics import _shares, conv_roofline
 from benchmark.profiling import Call
 from benchmark.reference import unet as ref_unet
 
@@ -94,7 +95,8 @@ def test_readers_on_a_made_up_trace():
              ("Memset (Unknown)", 70, 71)]
     calls = [_call(t, names, 80) for t in (0, 100)]
     window = {"wall_s": 1.0, "requests": 10,
-              "model_flops": counts_unet.train_step_flops(20, 512, 512)}
+              "model_flops": counts_unet.train_step_flops(20, 512, 512),
+              "conv_bound_s": counts_unet.conv_bound_s(20, 512, 512)}
     run = harness.Run(cell.config, cell.traffic, window, calls, 1)
     bound = counts_unet.conv_bound_s(20, 512, 512)
     read = {m: harness.load_metric(m).read(run)
@@ -102,6 +104,13 @@ def test_readers_on_a_made_up_trace():
                       "idle_share.train_unet", "mfu.train_unet")}
     assert read["conv_roofline.train_unet"] == pytest.approx(
         100 * bound / 60e-6)
+    # the bound the reader computed from the cell's files before the
+    # entry gave it, bit for bit
+    net, traffic = cell.config["network"], cell.traffic
+    assert read["conv_roofline.train_unet"] == _shares.roofline(
+        run, conv_roofline.KERNELS, counts_unet.conv_bound_s(
+            traffic["batch"], traffic["height"], traffic["width"],
+            net["num_layers"], 2 * net["kernel_pad"] + 1))
     assert read["glue_ms.train_unet"] == pytest.approx(11e-3)
     assert read["idle_share.train_unet"] == pytest.approx(100 * 9 / 80)
     assert read["mfu.train_unet"] == pytest.approx(
@@ -109,7 +118,22 @@ def test_readers_on_a_made_up_trace():
     window["convs_per_step"] = 5
     with pytest.raises(RuntimeError, match="convolutions"):
         harness.load_metric("conv_roofline.train_unet").read(run)
+    del window["conv_bound_s"]
+    assert harness.load_metric("conv_roofline.train_unet").read(run) is None
     empty = harness.Run(cell.config, cell.traffic, window, None, 1)
     assert harness.load_metric("conv_roofline.train_unet").read(empty) \
         is None
     assert harness.load_metric("glue_ms.train_unet").read(empty) is None
+
+
+def test_window_gives_the_conv_bound_of_its_sizes(small_cell):
+    """The entry's window carries its convolutions' bound at the cell's
+    batch, frame and network (``conv_roofline`` reads it)."""
+    cell = small_cell(CELL)
+    session = train_unet.Session(cell.config, cell.traffic, 2 ** 31 + 3,
+                                 torch.device("cpu"))
+    got = session.window(0.1)
+    net, traffic = cell.config["network"], cell.traffic
+    assert got["conv_bound_s"] == counts_unet.conv_bound_s(
+        traffic["batch"], traffic["height"], traffic["width"],
+        net["num_layers"], 2 * net["kernel_pad"] + 1)
