@@ -72,7 +72,8 @@ def build_parser():
         default="convStaticWithSigmoid",
         choices=["uNet", "simpleConvolutionsRelu", "convStatic",
                  "convIncreasing", "convStaticWithSigmoid",
-                 "convStaticSkipLayers", "cascadeSkipLayers"])
+                 "convStaticSkipLayers", "cascadeSkipLayers",
+                 "pix2pixUnet"])
     add("--loss_scale_whdr", type=float, default=10)
     add("--loss_scale_lambert", type=float, default=0.0)
     add("--shading_unary_type", default="L1_0.5")

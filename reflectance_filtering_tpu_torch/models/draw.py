@@ -205,6 +205,41 @@ def network_graph(cfg: NetworkConfig):
         node("head", _conv_label(params, "head"), "conv", 16, 1, "cat0")
         out("head", 17, lane=1)
 
+    elif t == "pix2pixUnet":
+        # _apply_pix2pix: the down path on lane 0 (4x4 stride-2 convs), the
+        # up path back on lane 1, each up conv's output concatenated with
+        # the down path's map of its scale
+        def norm(name):
+            return "\n+BN" if name + "_bn" in params else ""
+
+        prev = "data"
+        for i in range(1, n + 1):
+            name = "down{}".format(i)
+            act = "" if i == 1 else "LReLU 0.2,\n"
+            nodes.append((name, _conv_label(params, name, "\n" + act + "s2"
+                                            + norm(name)), "conv", i, 0))
+            edges.append((prev, name))
+            prev = name
+        for i in range(n, 0, -1):
+            name = "up{}".format(i)
+            col = 2 * n + 1 - i
+            nodes.append((name, _conv_label(params, name, "\nReLU, deconv s2"
+                                            + (norm(name) if i > 1
+                                               else ", tanh")),
+                          "conv", col, 1))
+            edges.append((prev, name))
+            prev = name
+            if i > 1:
+                cat = "cat{}".format(i - 1)
+                nodes.append((cat, "concat\n(skip down{})".format(i - 1),
+                              "op", col, 2))
+                edges.append((name, cat))
+                edges.append(("down{}".format(i - 1), cat))
+                prev = cat
+        nodes.append(("head", "(1 + t) / 2", "op", 2 * n + 1, 1))
+        edges.append((prev, "head"))
+        out("head", 2 * n + 2, lane=1)
+
     else:
         raise ValueError("networkType '{}' not known".format(t))
 

@@ -10,9 +10,10 @@ Two faces of the same numbers:
   kernel K1 (ops/cnn_kernel.py) and the JAX package read the same numbers
   in the same order.
 * ``init_network`` / ``apply_network`` are the training factories of all
-  seven architectures (:239-611): parameters are the JAX package's pytree
-  as torch tensors, ``{"conv0": {"kernel": HWIO, "bias": [out]}, ...,
-  "bn0": {"mean", "var"}, ...}``, and images are NHWC.  For the
+  seven architectures (:239-611) and of pix2pix's U-Net generator
+  (``pix2pixUnet``, which the JAX package lacks): parameters are the JAX
+  package's pytree as torch tensors, ``{"conv0": {"kernel": HWIO, "bias":
+  [out]}, ..., "bn0": {"mean", "var"}, ...}``, and images are NHWC.  For the
   skip-layer trunks (``convStaticSkipLayers`` and both levels of
   ``cascadeSkipLayers``), a CUDA tensor whose config passes
   ``fits_fused_trunk`` runs the fused trunk K7 (ops/cnn_train_kernel.py);
@@ -20,13 +21,15 @@ Two faces of the same numbers:
   ``F.conv_transpose2d``, as the JAX package runs XLA convolutions for
   them.  Batch normalization is caffe's (no scale or shift): batch
   statistics in training, folded into the running ones after the
-  optimizer step (:func:`update_bn_stats`), the running ones in eval.
+  optimizer step (:func:`update_bn_stats`), the running ones in eval;
+  pix2pix's is PyTorch's ``BatchNorm2d`` (:func:`batch_norm` with
+  ``gamma`` and ``beta``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ NETWORK_TYPES = (
     "convStaticWithSigmoid",
     "convStaticSkipLayers",
     "cascadeSkipLayers",
+    "pix2pixUnet",
 )
 
 def head_channels(rs_est_mode: str) -> int:
@@ -237,32 +241,37 @@ def matmul_precision(name: str):
 
 def conv2d(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
            pad: int = 0, stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """NHWC conv with an HWIO kernel and zero padding (caffe Convolution);
-    a 1x1 kernel at stride 1 without padding is a per-pixel matmul.  The
-    convolutions (cuDNN's on a card), not the matmuls, count on
-    ``conv2d.launches``, replays of a captured step included."""
-    k = params["kernel"]
+    """NHWC conv with an HWIO kernel and zero padding (caffe Convolution),
+    plus ``params["bias"]`` where there is one; a 1x1 kernel at stride 1
+    without padding is a per-pixel matmul.  The convolutions (cuDNN's on a
+    card), not the matmuls, count on ``conv2d.launches``, replays of a
+    captured step included."""
+    k, bias = params["kernel"], params.get("bias")
     if k.shape[0] == 1 and k.shape[1] == 1 and pad == 0 and stride == 1:
-        return x @ k[0, 0] + params["bias"]
+        y = x @ k[0, 0]
+        return y if bias is None else y + bias
     _build.count(conv2d)
-    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
-                 params["bias"], stride=stride, padding=pad,
-                 dilation=dilation)
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), bias,
+                 stride=stride, padding=pad, dilation=dilation)
     return y.permute(0, 2, 3, 1)
 
 
 def deconv2d(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
-             stride: int = 2) -> torch.Tensor:
-    """Caffe Deconvolution (kernel = stride, pad 0), uNet's up path: the
+             stride: int = 2, pad: int = 0) -> torch.Tensor:
+    """Caffe Deconvolution (uNet's up path: kernel = stride, pad 0; pix2pix's:
+    4x4, stride 2, pad 1), plus ``params["bias"]`` where there is one: the
     JAX package's ``lax.conv_transpose`` of an HWIO kernel without
     ``transpose_kernel`` does not flip the kernel and
     ``F.conv_transpose2d`` does, so the kernel is flipped spatially here
-    and laid out [in, out, kh, kw].  Counts on ``deconv2d.launches``, as
-    :func:`conv2d` does."""
+    and laid out [in, out, kh, kw].  Tap a of the kernel (K below) then
+    reaches output row s i + (kh - 1 - a) - pad from input row i: the
+    output is the correlation of the input spread s apart (zeros between)
+    with K, zero-padded by kh - 1 - pad.  Counts on ``deconv2d.launches``,
+    as :func:`conv2d` does."""
     k = params["kernel"].flip(0, 1).permute(2, 3, 0, 1)
     _build.count(deconv2d)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k, params["bias"],
-                           stride=stride)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k, params.get("bias"),
+                           stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1)
 
 
@@ -287,6 +296,10 @@ def _global_mean(x: torch.Tensor, group, size: int) -> torch.Tensor:
     return all_reduce(x.mean(dim=(0, 1, 2)), group=group) / size
 
 
+# PyTorch's BatchNorm2d default, pix2pix's normalization
+TORCH_BN_MOMENTUM = 0.1
+
+
 def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                train: bool, eps: float = 1e-5, group=None):
     """Caffe BatchNorm (no learned scale or shift: the reference never
@@ -298,7 +311,17 @@ def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     caffe's TEST phase does.  Under a process ``group`` (the data-parallel
     step, each rank holding equal rows of the batch) the moments are the
     global batch's, as the JAX package's sharded step normalises over the
-    whole batch: all-reduced, with autograd through the reduction."""
+    whole batch: all-reduced, with autograd through the reduction.
+
+    With ``gamma`` and ``beta`` in ``params`` it is PyTorch's
+    ``BatchNorm2d`` instead (:func:`_affine_batch_norm`), which returns
+    no statistics: it updates the running ones itself."""
+    if "gamma" in params:
+        if group is not None:
+            raise NotImplementedError(
+                "the affine batch norm has no data-parallel form: each "
+                "rank would move its running statistics apart")
+        return _affine_batch_norm(params, x, train=train, eps=eps), None
     if train and group is not None:
         import torch.distributed as dist
         size = dist.get_world_size(group)
@@ -311,6 +334,31 @@ def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         mean, var = params["mean"], params["var"]
     y = (x - mean) * torch.rsqrt(var + eps)
     return y, {"mean": mean, "var": var}
+
+
+def _affine_batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                       train: bool, eps: float) -> torch.Tensor:
+    """PyTorch's ``BatchNorm2d`` over NHWC: (x - mean) / sqrt(var + eps)
+    * gamma + beta.  Training normalises with the batch's mean and
+    population variance and moves the running ones in place, running =
+    0.9 running + 0.1 batch, with the batch's unbiased variance (so each
+    replay of a captured step moves them); eval normalises with the
+    running ones.  It runs ATen's own kernels (``native_batch_norm``,
+    which ``torch.batch_norm`` would pass over for cuDNN's on a card),
+    reading the NHWC activations where they lie as a channels-last
+    tensor, and counts one launch on ``batch_norm.launches`` a call,
+    replays included, as :func:`conv2d` counts."""
+    _build.count(batch_norm)
+    # the running statistics are leaves of the params, which may require
+    # grad; the kernel writes them through a view that does not
+    y, _, _ = torch.native_batch_norm(
+        x.permute(0, 3, 1, 2), params["gamma"], params["beta"],
+        params["mean"].detach(), params["var"].detach(), train,
+        TORCH_BN_MOMENTUM, eps)
+    return y.permute(0, 2, 3, 1)
+
+
+batch_norm.launches = 0
 
 
 def update_bn_stats(params: Params, bn_stats: Dict[str, Any],
@@ -620,6 +668,96 @@ def _apply_unet(params, images, cfg: NetworkConfig):
         return {"RS_est": conv2d(params["head"], x, pad=1)}
 
 
+# pix2pix's U-Net generator (Isola et al., CVPR 2017, arXiv:1611.07004;
+# ``UnetGenerator`` of github.com/junyanz/pytorch-CycleGAN-and-pix2pix with
+# --norm batch): num_downs = numLayers 4x4 stride-2 convolutions down to
+# 1x1, as many 4x4 stride-2 transposed convolutions back, each block's
+# input concatenated before its up path's output.  Widths: ngf, 2 ngf,
+# 4 ngf, then 8 ngf (ngf = 2**num_filters_log).
+P2P_MIN_DOWNS = 5
+P2P_KERNEL = 4
+P2P_INIT_STD = 0.02      # pix2pix's init_type normal, gain 0.02
+
+
+def _p2p_widths(cfg: NetworkConfig) -> List[int]:
+    """The output width of each down convolution, outermost first."""
+    if cfg.num_layers < P2P_MIN_DOWNS:
+        raise ValueError(
+            "pix2pixUnet needs numLayers (num_downs) of at least {}, got "
+            "{}".format(P2P_MIN_DOWNS, cfg.num_layers))
+    return [cfg.num_filters * min(2 ** i, 8) for i in range(cfg.num_layers)]
+
+
+def _init_pix2pix(gen, cfg: NetworkConfig, device) -> Params:
+    """``down1..downN`` and ``up1..upN`` {"kernel": HWIO}, ``up1`` with a
+    bias; ``down2_bn..down{N-1}_bn`` and ``up2_bn..upN_bn`` {"gamma",
+    "beta", "mean", "var"}.  pix2pix's init: kernels N(0, 0.02), gamma
+    N(1, 0.02), beta and the bias 0, running mean 0 and variance 1."""
+    widths, k = _p2p_widths(cfg), P2P_KERNEL
+    n = len(widths)
+
+    def normal(shape, mean=0.0):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32)
+                * P2P_INIT_STD + mean).to(device)
+
+    def norm(name, c):
+        params[name] = {"gamma": normal((c,), 1.0),
+                        "beta": torch.zeros((c,), device=device),
+                        **bn_init(c, device)}
+
+    params: Params = {}
+    for i, co in enumerate(widths, start=1):
+        ci = 3 if i == 1 else widths[i - 2]
+        params["down{}".format(i)] = {"kernel": normal((k, k, ci, co))}
+        if 1 < i < n:
+            norm("down{}_bn".format(i), co)
+    for i in range(n, 0, -1):
+        ci = widths[i - 1] * (1 if i == n else 2)
+        co = cfg.num_output_final if i == 1 else widths[i - 2]
+        params["up{}".format(i)] = {"kernel": normal((k, k, ci, co))}
+        if i > 1:
+            norm("up{}_bn".format(i), co)
+    params["up1"]["bias"] = torch.zeros((cfg.num_output_final,),
+                                        device=device)
+    return params
+
+
+def _apply_pix2pix(params, images, cfg: NetworkConfig, *, train: bool,
+                   bn_group=None):
+    """The down path: down1 on the images, then LeakyReLU(0.2), a down
+    convolution and batch norm (none on the innermost); the up path:
+    ReLU, an up convolution, batch norm, and the concatenation [the down
+    path's map of that scale, it]; the outermost up convolution (bias) and
+    tanh.  pix2pix's in-place LeakyReLU overwrites each block's input
+    before the concatenation reads it, and the ReLU after makes that
+    ReLU(LeakyReLU(x)) = ReLU(x): the concatenation carries the map as it
+    was.  The head maps tanh's t to the estimate (1 + t) / 2 in (0, 1),
+    as pix2pix maps its output to an image.  The spans ``p2p.down`` and
+    ``p2p.up`` time the paths' issue in eager calls; a captured step
+    records them once, at its capture, and its replays issue none."""
+    n = len(_p2p_widths(cfg))
+
+    def norm(name, x):
+        return batch_norm(params[name], x, train=train, group=bn_group)[0]
+
+    skips = []
+    with span("p2p.down"):
+        x = conv2d(params["down1"], images, pad=1, stride=2)
+        for i in range(2, n + 1):
+            skips.append(x)
+            x = conv2d(params["down{}".format(i)], F.leaky_relu(x, 0.2),
+                       pad=1, stride=2)
+            if i < n:
+                x = norm("down{}_bn".format(i), x)
+    with span("p2p.up"):
+        for i in range(n, 1, -1):
+            x = norm("up{}_bn".format(i), deconv2d(
+                params["up{}".format(i)], torch.relu(x), pad=1))
+            x = torch.cat([skips.pop(), x], dim=-1)
+        t = torch.tanh(deconv2d(params["up1"], torch.relu(x), pad=1))
+    return {"RS_est": (1.0 + t) * 0.5}
+
+
 # ---------------------------------------------------------------------------
 # Public factory
 # ---------------------------------------------------------------------------
@@ -641,7 +779,8 @@ def _check_type(cfg: NetworkConfig) -> None:
 def init_network(cfg: NetworkConfig, generator: Optional[torch.Generator]
                  = None, device=None, in_channels: int = 3) -> Params:
     """Fresh parameters of a config: caffe xavier kernels, zero biases,
-    running mean 0 and variance 1 for batch normalization, drawn from
+    running mean 0 and variance 1 for batch normalization (pix2pixUnet:
+    its published normal init, :func:`_init_pix2pix`), drawn from
     ``generator`` (a new one seeded 0 when None), on ``device``.
     ``in_channels`` is the input width of a convStaticSkipLayers trunk."""
     _check_type(cfg)
@@ -662,6 +801,8 @@ def init_network(cfg: NetworkConfig, generator: Optional[torch.Generator]
         return _init_simple_conv_relu(generator, cfg, device)
     if t == "convIncreasing":
         return _init_conv_increasing(generator, cfg, device)
+    if t == "pix2pixUnet":
+        return _init_pix2pix(generator, cfg, device)
     return _init_unet(generator, cfg, device)
 
 
@@ -692,6 +833,9 @@ def apply_network(params: Params, images: torch.Tensor, cfg: NetworkConfig,
         return _apply_simple_conv_relu(params, images, cfg)
     if t == "convIncreasing":
         return _apply_conv_increasing(params, images, cfg)
+    if t == "pix2pixUnet":
+        return _apply_pix2pix(params, images, cfg, train=train,
+                              bn_group=bn_group)
     return _apply_unet(params, images, cfg)
 
 

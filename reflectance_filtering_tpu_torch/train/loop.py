@@ -16,8 +16,10 @@ Loss graph wiring mirrors the reference's training/networks.py:222-301:
     loss_scale_boundaries01 != 0 and RS_est_mode != rDirectly;
   * lambert (EuclideanLoss of R*S vs I) when RS_est_mode == 'RS';
   * cascadeSkipLayers adds the level-0 hinge and WHDR.
-Batch normalization's running statistics are folded in after each
-optimizer step.
+Caffe's batch normalization's running statistics are folded in after each
+optimizer step; pix2pix's affine batch norm moves its own in the forward,
+in place (a captured step's replays move them too), and trains its gamma
+and beta with the other parameters.
 
 Solver semantics follow the reference's _get_solver: ADAM (caffe defaults
 b1=.9, b2=.999, eps=1e-8; torch's Adam and optax's adam are the same
@@ -313,8 +315,9 @@ def make_train_step(net_cfg: NetworkConfig, loss_cfg: LossConfig,
     """One training step over ``params`` (updated in place):
     (images, comparisons, generator=None, metric_comparisons=None) ->
     metrics (0-d tensors on the device, detached).  Batch normalization's
-    running statistics are folded in after the optimizer step (its
-    mean/var leaves get no gradient, so the optimizer leaves them)."""
+    running statistics are folded in after the optimizer step, or moved
+    in the forward by the affine batch norm (their mean/var leaves get no
+    gradient, so the optimizer leaves them)."""
     return _make_step_body(net_cfg, loss_cfg, params, optimizer,
                            preselected, kernels)
 

@@ -261,11 +261,13 @@ def test_conv_static_grows_no_bn_params():
         assert blobs["__bn_stats__"] == {}
 
 
-@pytest.mark.parametrize("kind", tn.NETWORK_TYPES)
+@pytest.mark.parametrize("kind", jn.NETWORK_TYPES)
 @pytest.mark.parametrize("bn", [False, True])
 def test_init_network_matches_jax_layout(kind, bn):
-    """The same layers, parts and shapes as the JAX init; xavier kernels,
-    zero biases, running mean 0 and variance 1."""
+    """The same layers, parts and shapes as the JAX init, for every type
+    the JAX package has (pix2pixUnet is the port's alone:
+    tests/test_torch_pix2pix.py); xavier kernels, zero biases, running
+    mean 0 and variance 1."""
     cfg_kw = _cfg(kind, bn, 1, "RS")
     want = _jparams(cfg_kw)
     got = tn.init_network(tn.NetworkConfig(**cfg_kw),
